@@ -1,0 +1,120 @@
+"""The PyTorch port stands alone: it imports no JAX and nothing of the JAX
+package, and its entry points do not quietly run on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "incremental_multimodal_medical_learning_ii_torch"
+FORBIDDEN = ("jax", "jaxlib", "incremental_multimodal_medical_learning_ii_tpu")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+before = set(sys.modules)
+import incremental_multimodal_medical_learning_ii_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+new = sorted(set(sys.modules) - before)
+print(len(names))
+print("\\n".join(new))
+"""
+
+
+def test_import_all_submodules_loads_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    n_modules, loaded = int(lines[0]), lines[1:]
+    assert n_modules >= 20
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_no_jax_import_in_source(target):
+    files = sorted(PORT.rglob("*.py")) if target == "package" else [REPO / "chip_smoke.py"]
+    assert files and all(f.exists() for f in files)
+    for f in files:
+        bad = [r for r in _imported_roots(f) if r in FORBIDDEN]
+        assert not bad, (f, bad)
+
+
+def test_entry_points_refuse_without_cuda(monkeypatch):
+    """Called without ``device=``, the entry points ask for CUDA and raise
+    when it is absent; they never carry on on the CPU."""
+    from incremental_multimodal_medical_learning_ii_torch.cli.classify import (
+        add_classifier_args,
+        build_classifier,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.inference import ChexpertClassifier
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        init_biovil_image_model,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import PromptBank
+    from incremental_multimodal_medical_learning_ii_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    bank = PromptBank(torch.zeros(5, 1, 128), torch.zeros(5, 1, 128),
+                      torch.ones(5, dtype=torch.int32), torch.ones(5, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ChexpertClassifier(init_biovil_image_model(), bank)
+    import argparse
+
+    p = argparse.ArgumentParser()
+    add_classifier_args(p)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_classifier(p.parse_args(["--random-weights"]))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_refuse_foreign_devices():
+    """A wrapper takes its plain version only for CPU tensors; anything
+    else that is not CUDA is an error, not a fallback."""
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
+        fused_bottleneck_layer,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        fused_pairwise_cosine,
+    )
+
+    x = torch.zeros(4, 128, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        fused_pairwise_cosine(x, x)
+    with pytest.raises(ValueError, match="meta"):
+        fused_bottleneck_layer(torch.zeros(1, 8, 8, 64, device="meta"), {"w1": []})
+    before = fused_pairwise_cosine.launches
+    fused_pairwise_cosine(torch.ones(2, 128), torch.ones(3, 128))
+    assert fused_pairwise_cosine.launches == before  # the plain path counts nothing
+
+
+def test_kernel_build_is_lazy_and_named_by_content():
+    """Nothing builds at import; the library name follows the source."""
+    from incremental_multimodal_medical_learning_ii_torch.ops import cuda_build
+
+    assert set(cuda_build.SOURCES) == {"fused_cosine", "fused_bottleneck"}
+    for name, src in cuda_build.SOURCES.items():
+        assert (cuda_build.CSRC_DIR / src).exists()
+        path = cuda_build.library_path(name)
+        assert path.parent == cuda_build.BUILD_DIR and path.name.startswith(name + "-")
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
