@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
-    python3 chip_smoke.py --profile  # also a torch.profiler window over one batch
+    python3 chip_smoke.py --profile  # also torch.profiler windows (a batch, a text encode)
 
 Phases, in order; any failure ends the script with a non-zero exit code
 and without the final result line:
@@ -21,7 +21,23 @@ and without the final result line:
    compared with the stock cuDNN forward and the plain scorer;
 6. HTTP: ``make_server`` with micro-batching, concurrent requests;
 7. times with CUDA events (kernels, plain versions, library calls) and
-   host-clock serving latency.
+   host-clock serving latency;
+8. the flash-attention kernel against its plain version on the card:
+   BERT-base report length (32, 12, 512, 64) with ragged lengths, hd 128,
+   S = 77 and 200 with padding, a row with one valid token, in fp32 (TF32
+   off) and bf16;
+9. the CXR-BERT text tower at full width (BERT-base, seeded random
+   weights) and report length (batch 32, seq 512, ragged masks):
+   ``get_projected_text_embeddings(use_flash_attention=True)`` against the
+   dense path, in bf16 and fp32, with the flash kernel's launches read
+   around it (12 per encode);
+10. the prompt bank from weights in the reference's formats, through the
+   classify CLI on the card: a BERT-base state dict (``torch.save``) +
+   vocab, and an HF snapshot directory; both banks agree and match the CPU
+   build; one batch served with the bank;
+11. times: the flash kernel (CUDA events; plain version, SDPA as the
+   library yardstick), text encodes in prompts/s (flash and dense at
+   report length, dense at the bank's shape) and the bank build.
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -49,6 +65,12 @@ PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores
 
 COSINE_ATOL = 1e-5
+FLASH_F32_ATOL = 1e-5  # fp32 online softmax vs one-pass softmax, TF32 off
+FLASH_BF16_ATOL = 2e-2  # bf16 kernel vs the plain version in fp32 from the same bf16 inputs
+FLASH_BF16_COS = 0.9999
+TEXT_BF16_COS = 0.999  # flash vs dense encode, per batch row (valid positions) and projection
+TEXT_F32_ATOL = 1e-4  # flash vs dense projected embeddings, fp32
+BANK_ATOL = 3e-5  # the BERT parity tolerance: the card's bank vs the CPU build
 LAYER_SHAPES = [(16, 128, 128, 64), (2, 120, 120, 64)]  # 512^2 batch 16; the 480 crop
 LAYER_REL = 0.02  # one block, kernel vs plain from the same input
 LAYER_CHAIN_REL = 0.06  # the three chained blocks (see kernel_checks)
@@ -186,6 +208,8 @@ def kernel_checks(model, bank, results):
                                          torch.randn(23, d, device=dev, generator=g)),
         "full bank (1000x128)": (torch.randn(1000, d, device=dev, generator=g),
                                  torch.randn(128, d, device=dev, generator=g)),
+        "chunked bank (16x300)": (torch.randn(16, d, device=dev, generator=g),
+                                  torch.randn(300, d, device=dev, generator=g)),
     }
     x, t = cases["unaligned (37x23, zero rows)"]
     x[5] = 0.0
@@ -535,15 +559,18 @@ def serving_times(clfs, plain, images, results):
     torch.cuda.synchronize()
 
 
-def profile_batch(clf, images, results):
+def profile_window(name, fn, results):
+    """One call of ``fn`` (after a warm-up call) under the profiler: wall
+    time, device busy time and the top device rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    clf.predict_arrays(images[:16])
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        clf.predict_arrays(images[:16])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -556,12 +583,343 @@ def profile_batch(clf, images, results):
             rows.append((e.self_device_time_total, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"  profile: one batch of 16, wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+    log(f"  profile: {name}, wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}%)")
     for dev_us, key, count in rows[:15]:
         log(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
-    results["profile"] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                              top=[dict(ms=r[0] / 1e3, kernel=r[1], calls=r[2]) for r in rows[:25]])
+    results.setdefault("profile", {})[name] = dict(
+        wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+        top=[dict(ms=r[0] / 1e3, kernel=r[1], calls=r[2]) for r in rows[:25]])
+
+
+def profile_text(model, ids, mask, results):
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import (
+        get_projected_text_embeddings,
+    )
+
+    for name, flash in (("one (32, 512) bf16 encode, flash", True),
+                        ("one (32, 512) bf16 encode, dense", False)):
+        with torch.no_grad():
+            profile_window(name, lambda: get_projected_text_embeddings(
+                model, ids, mask, dtype=torch.bfloat16, use_flash_attention=flash), results)
+
+
+# ----------------------------------------------------------------------
+# kernel 3 (flash attention) and the CXR-BERT text tower
+# ----------------------------------------------------------------------
+REPORT = (32, 12, 512, 64)  # BERT-base at report length: (B, nh, S, hd)
+
+
+def ragged_lengths(n: int, seq: int, seed: int):
+    """Seeded valid lengths from 64 to ``seq``; the last row is full."""
+    import numpy as np
+
+    lengths = np.random.default_rng(seed).integers(64, seq + 1, size=n)
+    lengths[-1] = seq
+    return lengths
+
+
+def segment_ids(lengths, seq: int):
+    import torch
+
+    return (torch.arange(seq, device="cuda")[None, :]
+            < torch.as_tensor(lengths, device="cuda")[:, None]).to(torch.int32)
+
+
+def flash_bound_ms(q, seg):
+    """Bytes: q, k, v read once, o written once, the segment ids.
+    Operations: 4*hd for every (query, key) pair of one segment, per head;
+    the pairs this run's masks need (a key of another segment adds
+    nothing)."""
+    import torch
+
+    b, nh, s, hd = q.shape
+    bytes_ = 4 * b * nh * s * hd * q.element_size() + 2 * seg.numel() * 4
+    pairs = int((seg[:, :, None] == seg[:, None, :]).sum())
+    flops = 4 * nh * hd * pairs
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    tb, tf = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations"), flops, 4 * b * nh * s * s * hd
+
+
+def flash_inputs(shape, lengths, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=g).to(dtype) for _ in range(3))
+    return q, k, v, segment_ids(lengths, shape[2]), 1.0 / float(shape[3]) ** 0.5
+
+
+def flash_checks(results):
+    """Kernel 3 against its plain version (fp32 from the same inputs)."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+        mha_reference,
+    )
+
+    cases = [("report (32,12,512,64)", REPORT, ragged_lengths(REPORT[0], REPORT[2], seed=1)),
+             ("hd128 (4,4,256,128)", (4, 4, 256, 128), [256, 200, 130, 17]),
+             ("S=77 (2,12,77,64)", (2, 12, 77, 64), [77, 40]),
+             ("S=200 (3,12,200,64), a one-token row", (3, 12, 200, 64), [200, 1, 123])]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, shape, lengths) in enumerate(cases):
+            q, k, v, seg, scale = flash_inputs(shape, lengths, dtype, seed=10 + i)
+            got = flash_attention(q, k, v, seg, seg, scale).float()
+            ref = mha_reference(q.float(), k.float(), v.float(), seg, seg, scale)
+            torch.cuda.synchronize()
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            err = float((got - ref).abs().max())
+            cos = float((got * ref).sum() / (got.norm() * ref.norm()))
+            out[key] = dict(max_abs_err=err, cos=cos)
+            bar = FLASH_F32_ATOL if dtype == torch.float32 else FLASH_BF16_ATOL
+            log(f"  K3 flash_attention {key}: max|kernel - plain| = {err:.3e} (bar {bar:g}), "
+                f"cos {cos:.8f}" + (f" (bar {FLASH_BF16_COS})" if dtype == torch.bfloat16 else ""))
+            check(bool(torch.isfinite(got).all()), f"flash {key} not finite")
+            check(err <= bar, f"flash {key} off by {err}")
+            check(dtype == torch.float32 or cos > FLASH_BF16_COS, f"flash {key}: cos {cos}")
+    results["flash_check"] = out
+
+
+def report_batch(vocab_size: int, seed: int):
+    """(32, 512) token ids and a ragged attention mask, as a batch of
+    radiology reports padded to the position table."""
+    import numpy as np
+    import torch
+
+    b, s = REPORT[0], REPORT[2]
+    lengths = ragged_lengths(b, s, seed)
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = np.random.default_rng(seed).integers(5, vocab_size, size=(b, s)).astype(np.int32) * mask
+    ids[:, 0] = 2
+    return torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+
+
+def text_tower(results):
+    """BERT-base at report length: the flash path (the main path of kernel
+    3, launches counted) against the dense path."""
+    import torch
+    import torch.nn.functional as F
+
+    from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import (
+        BertDims,
+        bert_encode,
+        get_projected_text_embeddings,
+        init_cxr_bert,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
+        fused_bottleneck_layer,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        fused_pairwise_cosine,
+    )
+
+    t0 = time.perf_counter()
+    model = init_cxr_bert(torch.Generator().manual_seed(0), BertDims()).cuda()
+    init_s = time.perf_counter() - t0
+    ids, mask = report_batch(model.dims.vocab_size, seed=2)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        counters = (flash_attention, fused_pairwise_cosine, fused_bottleneck_layer)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        proj_bf = get_projected_text_embeddings(model, ids, mask, dtype=bf16, use_flash_attention=True)
+        hid_bf = bert_encode(model, ids, mask, dtype=bf16, use_flash_attention=True)
+        proj_32 = get_projected_text_embeddings(model, ids, mask, use_flash_attention=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        dense_proj_bf = get_projected_text_embeddings(model, ids, mask, dtype=bf16)
+        dense_hid_bf = bert_encode(model, ids, mask, dtype=bf16)
+        dense_proj_32 = get_projected_text_embeddings(model, ids, mask)
+    log(f"  main path: 3 encodes of (32, 512) (bf16 projected, bf16 hidden, fp32 projected) "
+        f"in {wall:.3f} s; launches {launches}")
+    check(launches["flash_attention"] == 3 * model.dims.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times, not 12 per encode")
+    check(hid_bf.shape == (32, 512, 768) and proj_bf.shape == proj_32.shape == (32, 128),
+          "text tower output shapes")
+    check(all(bool(torch.isfinite(t).all()) for t in (proj_bf, hid_bf, proj_32)), "not finite")
+    valid = mask.bool()[..., None]
+    h, d = hid_bf.float() * valid, dense_hid_bf.float() * valid
+    row_cos = (h * d).sum((1, 2)) / (h.norm(dim=(1, 2)) * d.norm(dim=(1, 2)))
+    token_cos = F.cosine_similarity(hid_bf.float(), dense_hid_bf.float(), dim=-1)[mask.bool()]
+    proj_cos = F.cosine_similarity(proj_bf, dense_proj_bf, dim=-1)
+    f32_err = float((proj_32 - dense_proj_32).abs().max())
+    out = dict(init_s=init_s, main_path_s=wall, launches=launches,
+               hidden_row_cos_min=float(row_cos.min()), hidden_token_cos_min=float(token_cos.min()),
+               projection_cos_min=float(proj_cos.min()), fp32_projection_max_abs=f32_err)
+    log(f"  flash vs dense: {json.dumps(out)}")
+    check(out["hidden_row_cos_min"] > TEXT_BF16_COS, f"bf16 hidden rows: cos {row_cos.min()}")
+    check(out["projection_cos_min"] > TEXT_BF16_COS, f"bf16 projections: cos {proj_cos.min()}")
+    check(f32_err <= TEXT_F32_ATOL, f"fp32 projections off by {f32_err}")
+    results["text_tower"] = out
+    return model, ids, mask
+
+
+def reference_state_dict(model) -> dict:
+    """The port's CXR-BERT under the reference's keys (a ``BertForMaskedLM``
+    state dict plus the CXR-BERT projection head)."""
+    emb, sd = model.embeddings, {}
+
+    def put(prefix, module):
+        sd[prefix + ".weight"] = module.weight
+        sd[prefix + ".bias"] = module.bias
+
+    sd["bert.embeddings.word_embeddings.weight"] = emb.word.weight
+    sd["bert.embeddings.position_embeddings.weight"] = emb.position.weight
+    sd["bert.embeddings.token_type_embeddings.weight"] = emb.token_type.weight
+    put("bert.embeddings.LayerNorm", emb.ln)
+    for li, layer in enumerate(model.layers):
+        p = f"bert.encoder.layer.{li}."
+        for name, module in (("attention.self.query", layer.q), ("attention.self.key", layer.k),
+                             ("attention.self.value", layer.v),
+                             ("attention.output.dense", layer.attn_out),
+                             ("attention.output.LayerNorm", layer.attn_ln),
+                             ("intermediate.dense", layer.ffn_in), ("output.dense", layer.ffn_out),
+                             ("output.LayerNorm", layer.ffn_ln)):
+            put(p + name, module)
+    put("cls.predictions.transform.dense", model.mlm_head.transform_dense)
+    put("cls.predictions.transform.LayerNorm", model.mlm_head.transform_ln)
+    sd["cls.predictions.decoder.bias"] = model.mlm_head.decoder_bias
+    put("cls_projection_head.dense_to_hidden", model.cls_projection.dense_to_hidden)
+    put("cls_projection_head.LayerNorm", model.cls_projection.ln)
+    put("cls_projection_head.dense_to_output", model.cls_projection.dense_to_output)
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def bank_from_weights(model, images, results):
+    """The serving CLI builds its bank from BERT-base weights in the
+    reference's formats, on the card, and serves a batch with it."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import classify
+    from incremental_multimodal_medical_learning_ii_torch.cli.common import build_bank
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
+        fused_bottleneck_layer,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        fused_pairwise_cosine,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import write_test_vocab
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        sd = reference_state_dict(model)
+        torch.save(sd, tmp / "cxr_bert.pt")
+        vocab = write_test_vocab(tmp / "vocab.txt")
+        snap = tmp / "snapshot"
+        snap.mkdir()
+        dims = model.dims
+        (snap / "config.json").write_text(json.dumps(dict(
+            vocab_size=dims.vocab_size, hidden_size=dims.hidden_size,
+            num_hidden_layers=dims.num_layers, num_attention_heads=dims.num_heads,
+            intermediate_size=dims.intermediate_size,
+            max_position_embeddings=dims.max_position_embeddings,
+            type_vocab_size=dims.type_vocab_size, projection_size=dims.projection_size)))
+        shutil.copy(tmp / "cxr_bert.pt", snap / "pytorch_model.bin")
+        shutil.copy(vocab, snap / "vocab.txt")
+        p = argparse.ArgumentParser()
+        classify.add_classifier_args(p)
+        routes = {"checkpoint": ["--cxr-bert-checkpoint", str(tmp / "cxr_bert.pt"),
+                                 "--cxr-bert-vocab", str(vocab)],
+                  "snapshot": ["--cxr-bert-snapshot", str(snap)]}
+        clfs = {}
+        for route, flags in routes.items():
+            args = p.parse_args(["--random-weights", "--fused-layer1", *flags])
+            t0 = time.perf_counter()
+            build_bank(args, torch.device("cuda"))
+            torch.cuda.synchronize()
+            out[f"bank_build_s_{route}"] = time.perf_counter() - t0
+            clfs[route] = classify.build_classifier(args)
+        t0 = time.perf_counter()
+        cpu_bank = build_bank(p.parse_args(["--random-weights", *routes["checkpoint"]]),
+                              torch.device("cpu"))
+        out["bank_build_s_cpu"] = time.perf_counter() - t0
+    ck, sn = clfs["checkpoint"].bank, clfs["snapshot"].bank
+    out["checkpoint_vs_snapshot_max_abs"] = max(float((getattr(ck, f) - getattr(sn, f)).abs().max())
+                                                for f in ("pos", "neg"))
+    out["card_vs_cpu_max_abs"] = max(float((getattr(ck, f).cpu() - getattr(cpu_bank, f)).abs().max())
+                                     for f in ("pos", "neg"))
+    check(bool(torch.isfinite(ck.pos).all()) and ck.pos.shape[0] == 5, "bank shape")
+    check(out["checkpoint_vs_snapshot_max_abs"] <= BANK_ATOL, "checkpoint and snapshot banks differ")
+    check(out["card_vs_cpu_max_abs"] <= BANK_ATOL, "the card's bank differs from the CPU build")
+    fused_pairwise_cosine.launches = fused_bottleneck_layer.launches = 0
+    scores, preds = clfs["snapshot"].predict_arrays(images[:16])
+    out["launches"] = {"fused_cosine": fused_pairwise_cosine.launches,
+                       "fused_bottleneck": fused_bottleneck_layer.launches}
+    check(scores.shape == preds.shape == (16, 5) and bool(np.isfinite(scores).all())
+          and bool(((scores >= 0) & (scores <= 1)).all()), "scores with the CXR-BERT bank")
+    check(out["launches"]["fused_cosine"] > 0, "serving with the CXR-BERT bank skipped K1")
+    log(f"  bank from weights: {json.dumps(out)}")
+    results["bank_from_weights"] = out
+
+
+def text_times(model, ids, mask, results):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import (
+        get_projected_text_embeddings,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+        mha_reference,
+    )
+
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, seg, scale = flash_inputs(REPORT, ragged_lengths(REPORT[0], REPORT[2], seed=1),
+                                           dtype, seed=10)
+        allowed = (seg[:, :, None] == seg[:, None, :])[:, None]  # (B, 1, S, S)
+        lib = F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=scale).float()
+        ref = mha_reference(q.float(), k.float(), v.float(), seg, seg, scale)
+        bound, by, flops, dense_flops = flash_bound_ms(q, seg)
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, seg, seg, scale), 50)
+        name = str(dtype).split(".")[-1]
+        kernel = f"flash_fwd_{'bf16' if dtype == torch.bfloat16 else 'f32'}_kernel"
+        times[name] = dict(
+            ms=ms, plain_ms=cuda_time_ms(lambda: mha_reference(q, k, v, seg, seg, scale), 5),
+            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=allowed, scale=scale), 50),
+            bound_ms=bound, bound_by=by, flops_needed=flops, flops_dense=dense_flops,
+            tflops_needed=flops / ms / 1e9,
+            library_max_abs_vs_plain=float((lib - ref).abs().max()),
+            kernel_device_ms=profiled_device_ms(lambda: flash_attention(q, k, v, seg, seg, scale),
+                                                kernel))
+        log(f"  K3 {name} {REPORT}: {json.dumps(times[name])}")
+    results["flash_times"] = times
+
+    g = np.random.default_rng(3)
+    short_len = g.integers(8, 33, size=256)
+    short_mask = torch.from_numpy((np.arange(32)[None, :] < short_len[:, None]).astype(np.int32)).cuda()
+    short_ids = torch.from_numpy(g.integers(5, 30000, size=(256, 32)).astype(np.int32)).cuda()
+    rates = {}
+    with torch.no_grad():
+        for name, (i, m, dtype, flash) in {
+            "report (32, 512) bf16 flash": (ids, mask, torch.bfloat16, True),
+            "report (32, 512) bf16 dense": (ids, mask, torch.bfloat16, False),
+            "bank (256, 32) fp32 dense": (short_ids, short_mask, torch.float32, False),
+            "bank (256, 32) bf16 dense": (short_ids, short_mask, torch.bfloat16, False),
+        }.items():
+            ms = cuda_time_ms(lambda: get_projected_text_embeddings(
+                model, i, m, dtype=dtype, use_flash_attention=flash), 10, warmup=2)
+            rates[name] = dict(ms=ms, prompts_per_s=i.shape[0] / ms * 1e3)
+            log(f"  text encode {name}: {ms:.3f} ms, {rates[name]['prompts_per_s']:.1f} prompts/s")
+    results["text_encode_times"] = rates
 
 
 # ----------------------------------------------------------------------
@@ -569,7 +927,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler window over one served batch")
+                    help="add torch.profiler windows over one served batch and one "
+                         "report-length text encode (flash and dense)")
     args = ap.parse_args(argv)
 
     if not (REPO / PACKAGE / "csrc").is_dir():
@@ -629,10 +988,21 @@ def main(argv=None) -> int:
     time_kernels(folded, cases, results)
     serving_times(clfs, plain, images, results)
     if args.profile:
-        profile_batch(clfs["mean"], images, results)
+        profile_window("one batch of 16", lambda: clfs["mean"].predict_arrays(images[:16]), results)
+    log("[8] flash attention vs its plain version")
+    flash_checks(results)
+    log("[9] text tower at full width, report length")
+    bert, ids, mask = text_tower(results)
+    log("[10] prompt bank from weights through the CLI")
+    bank_from_weights(bert, images, results)
+    log("[11] times: flash attention, text encodes")
+    text_times(bert, ids, mask, results)
+    if args.profile:
+        profile_text(bert, ids, mask, results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]
+    k3 = results["flash_times"]["bfloat16"]
     kernels = [
         dict(name="fused_cosine", route="cuda", source=f"{PACKAGE}/csrc/fused_cosine.cu",
              replaces="incremental_multimodal_medical_learning_ii_tpu/ops/pallas_cosine.py:32",
@@ -646,6 +1016,12 @@ def main(argv=None) -> int:
              max_abs_err=results["layer_check"]["(16, 128, 128, 64)"]["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"]),
+        dict(name="flash_attention", route="cuda", source=f"{PACKAGE}/csrc/flash_attention.cu",
+             replaces="incremental_multimodal_medical_learning_ii_tpu/models/cxr_bert.py:197",
+             launches=results["text_tower"]["launches"]["flash_attention"],
+             max_abs_err=results["flash_check"]["report (32,12,512,64) bfloat16"]["max_abs_err"],
+             ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=k3["library_ms"]),
     ]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

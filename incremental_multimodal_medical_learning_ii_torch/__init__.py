@@ -10,8 +10,11 @@ package on a ported path is a hand-written Hopper kernel here
 
 Ported so far: the serving path — raw CXR -> preprocess -> BioViL
 ResNet-50 -> adapters -> prompt-cosine scores (``inference.py``,
-``cli/classify.py``, ``cli/serve.py``).  Entry points run on CUDA unless
-the caller passes ``device="cpu"``.
+``cli/classify.py``, ``cli/serve.py``) — and the CXR-BERT text tower
+(``models/cxr_bert.py`` with the flash-attention kernel,
+``text/tokenizer.py``, ``text/engine.py``, ``models/convert.py`` for the
+reference's weight files).  Entry points run on CUDA unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,11 @@
 
 Wraps :class:`ChexpertClassifier` (device preprocess -> frozen BioViL
 ResNet-50 -> optional adapter -> prompt-cosine scores) in a threaded
-stdlib HTTP server.
+stdlib HTTP server.  The weight flags are the classify CLI's.
 
     python -m incremental_multimodal_medical_learning_ii_torch.cli.serve \
-        --biovil-npz biovil.npz --bank bank.npz --fused-layer1 --port 8000
+        --biovil-checkpoint biovil.pt --cxr-bert-snapshot cxr_bert_dir \
+        --fused-layer1 --port 8000
 
 API:
   GET  /healthz   -> {"status": "ok", "platform": "cuda", "device": "...", "classes": [...]}

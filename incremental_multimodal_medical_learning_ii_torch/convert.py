@@ -8,7 +8,11 @@ with numpy (or array-like) leaves, and returns the port's counterpart:
   ``{scale, bias, mean, var}`` kept by name; the projector's conv2 bias);
 * an adapter tree ``{"image" | "text" | "shared": {"dense1": {"kernel",
   "bias"}, ...}}`` becomes an ``nn.ModuleDict`` of adapters (``kernel``
-  (in, out) -> ``weight`` (out, in)).
+  (in, out) -> ``weight`` (out, in));
+* a CXR-BERT tree (``init_cxr_bert`` layout: ``embeddings``, ``layers``,
+  ``mlm_head``, optional ``cls_projection``) becomes a :class:`CXRBert`
+  at the ``dims`` given (LayerNorm ``scale`` -> ``weight``; the head count
+  is not in the shapes, so ``dims`` is required).
 
 ``load_biovil_npz`` reads a ``.npz`` bundle written by the JAX package's
 ``cli/convert_weights.py`` (``utils/serialization.py`` layout) with this
@@ -17,7 +21,8 @@ package's own reader.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Sequence
+import dataclasses
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +35,7 @@ from incremental_multimodal_medical_learning_ii_torch.models.adapters import (
 from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
     BioViLImageModel,
 )
+from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import BertDims, CXRBert
 from incremental_multimodal_medical_learning_ii_torch.models.resnet import (
     EXPANSION,
     Bottleneck,
@@ -119,10 +125,47 @@ def _adapter_from_jax(p: Mapping[str, Any]) -> nn.Module:
     return module
 
 
-def params_from_jax(tree: Mapping[str, Any]):
-    """A JAX parameter tree (numpy leaves) -> the port's module(s)."""
+@torch.no_grad()
+def _ln_from_jax(ln: nn.LayerNorm, p: Mapping[str, Any]) -> None:
+    ln.weight.copy_(_t(p["scale"]))
+    ln.bias.copy_(_t(p["bias"]))
+
+
+@torch.no_grad()
+def _bert_from_jax(tree: Mapping[str, Any], dims) -> CXRBert:
+    # any dims object with BertDims' fields (the JAX package's own included)
+    dims = BertDims(**{f.name: getattr(dims, f.name) for f in dataclasses.fields(BertDims)})
+    model = CXRBert(dims, projection="cls_projection" in tree)
+    emb, p = model.embeddings, tree["embeddings"]
+    for name in ("word", "position", "token_type"):
+        getattr(emb, name).weight.copy_(_t(p[name]))
+    _ln_from_jax(emb.ln, p["ln"])
+    for layer, p in zip(model.layers, tree["layers"], strict=True):
+        for name in ("q", "k", "v", "attn_out", "ffn_in", "ffn_out"):
+            _dense_from_jax(getattr(layer, name), p[name])
+        _ln_from_jax(layer.attn_ln, p["attn_ln"])
+        _ln_from_jax(layer.ffn_ln, p["ffn_ln"])
+    head, p = model.mlm_head, tree["mlm_head"]
+    _dense_from_jax(head.transform_dense, p["transform_dense"])
+    _ln_from_jax(head.transform_ln, p["transform_ln"])
+    head.decoder_bias.copy_(_t(p["decoder_bias"]))
+    if model.cls_projection is not None:
+        proj, p = model.cls_projection, tree["cls_projection"]
+        _dense_from_jax(proj.dense_to_hidden, p["dense_to_hidden"])
+        _ln_from_jax(proj.ln, p["ln"])
+        _dense_from_jax(proj.dense_to_output, p["dense_to_output"])
+    return model
+
+
+def params_from_jax(tree: Mapping[str, Any], dims: Optional[Any] = None):
+    """A JAX parameter tree (numpy leaves) -> the port's module(s);
+    ``dims`` (a ``BertDims``) for a CXR-BERT tree."""
     if "encoder" in tree and "projector" in tree:
         return _biovil_from_jax(tree)
+    if "embeddings" in tree and "layers" in tree:
+        if dims is None:
+            raise ValueError("a CXR-BERT tree needs dims= (the head count is not in the shapes)")
+        return _bert_from_jax(tree, dims)
     if set(tree) <= {"image", "text", "shared"}:
         return nn.ModuleDict({k: _adapter_from_jax(v) for k, v in tree.items()})
     raise ValueError(f"unrecognised parameter tree with keys {sorted(tree)}")

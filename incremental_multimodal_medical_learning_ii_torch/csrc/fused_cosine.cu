@@ -13,7 +13,9 @@
 // is the whole cost.
 //
 // Design: one block per tile of 64 rows of X.  The block copies the bank
-// into shared memory (T <= 256 rows, up to 128 KB) and normalises it
+// into shared memory (T <= 256 rows, up to 128 KB; the wrapper launches a
+// larger bank in chunks of 256 rows, each writing its column slice of an
+// output of row stride ldo) and normalises it
 // there; each warp then takes 8 rows of X, holds one row as 4 floats a
 // lane, takes its norm with shuffles, and forms one fp32 FMA dot per bank
 // row, reduced with shuffles.  No normalised value is written to global
@@ -49,7 +51,7 @@ __device__ __forceinline__ float4 normalise(float4 v) {
 
 __global__ void __launch_bounds__(kWarps * 32)
 fused_cosine_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                    float* __restrict__ out, int B, int T) {
+                    float* __restrict__ out, int B, int T, int ldo) {
   extern __shared__ float4 bank[];  // T rows x 32 float4
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -65,7 +67,7 @@ fused_cosine_kernel(const float* __restrict__ x, const float* __restrict__ t,
     const int row = row0 + i;
     if (row >= B) break;  // warp-uniform
     const float4 xn = normalise(reinterpret_cast<const float4*>(x + (size_t)row * kDim)[lane]);
-    float* orow = out + (size_t)row * T;
+    float* orow = out + (size_t)row * ldo;
     for (int r = 0; r < T; ++r) {
       const float4 b = bank[r * 32 + lane];
       float p = xn.x * b.x;
@@ -80,16 +82,17 @@ fused_cosine_kernel(const float* __restrict__ x, const float* __restrict__ t,
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 = launched).
+// out[b * ldo + r] for r < T (ldo >= T).  Returns the CUDA error of the
+// launch (0 = launched).
 extern "C" int fused_cosine_launch(const void* x, const void* t, void* out,
-                                   int B, int T, void* stream) {
-  if (B <= 0 || T <= 0 || T > kMaxRows) return (int)cudaErrorInvalidValue;
+                                   int B, int T, int ldo, void* stream) {
+  if (B <= 0 || T <= 0 || T > kMaxRows || ldo < T) return (int)cudaErrorInvalidValue;
   const int smem = T * kDim * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fused_cosine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + kRowsPerBlock - 1) / kRowsPerBlock;
   fused_cosine_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)t, (float*)out, B, T);
+      (const float*)x, (const float*)t, (float*)out, B, T, ldo);
   return (int)cudaGetLastError();
 }

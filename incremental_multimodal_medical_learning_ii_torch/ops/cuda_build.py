@@ -31,6 +31,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {
     "fused_cosine": "fused_cosine.cu",
     "fused_bottleneck": "fused_bottleneck.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = [

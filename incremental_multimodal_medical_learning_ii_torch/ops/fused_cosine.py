@@ -5,12 +5,16 @@
 ``csrc/fused_cosine.cu`` for tensors on CUDA and takes the plain version,
 :func:`pairwise_cosine` (``ops/cosine.py``), for tensors on the CPU.  The
 kernel normalises both operands on chip and never writes a normalised
-intermediate to device memory.  No-grad paths only: it has no backward.
+intermediate to device memory.  It holds at most 256 bank rows in shared
+memory, so a larger bank goes in chunks of 256 rows, one launch each, into
+the output's column slices (the JAX kernel takes any bank).  No-grad paths
+only: it has no backward.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Callable
 
 import torch
 
@@ -27,6 +31,31 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def scores_in_chunks(x: torch.Tensor, t: torch.Tensor, out: torch.Tensor,
+                     launch: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], None]) -> torch.Tensor:
+    """Fill ``out`` (B, T) chunk by chunk: ``launch(x, bank_rows, out_cols)``
+    for each run of at most ``MAX_BANK_ROWS`` bank rows and its column slice."""
+    for start in range(0, t.shape[0], MAX_BANK_ROWS):
+        stop = min(start + MAX_BANK_ROWS, t.shape[0])
+        launch(x, t[start:stop], out[:, start:stop])
+    return out
+
+
+def _launch(x: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
+    """One kernel launch: ``out`` is a column slice of a row-major (B, T) buffer."""
+    from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import load
+
+    fn = load("fused_cosine").fused_cosine_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x.data_ptr(), t.data_ptr(), out.data_ptr(), x.shape[0], t.shape[0], out.stride(0),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_cosine kernel launch failed: CUDA error {rc}")
+    fused_pairwise_cosine.launches += 1
+
+
 def fused_pairwise_cosine(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(B, 128) x (T, 128) float32 -> (B, T) float32 cosine similarities."""
     if x.device.type == "cpu" and t.device.type == "cpu":
@@ -37,25 +66,10 @@ def fused_pairwise_cosine(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected (B, {DIM}) x (T, {DIM}), got {tuple(x.shape)} x {tuple(t.shape)}")
     if x.dtype != torch.float32 or t.dtype != torch.float32:
         raise ValueError(f"expected float32 operands, got {x.dtype} and {t.dtype}")
-    b, rows = x.shape[0], t.shape[0]
-    if rows > MAX_BANK_ROWS:
-        raise ValueError(f"bank of {rows} rows exceeds the kernel's {MAX_BANK_ROWS}")
-    out = torch.empty((b, rows), dtype=torch.float32, device=x.device)
-    if b == 0 or rows == 0:
+    out = torch.empty((x.shape[0], t.shape[0]), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
         return out
-    from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import load
-
-    fn = load("fused_cosine").fused_cosine_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    x, t = _aligned(x), _aligned(t)
-    rc = fn(x.data_ptr(), t.data_ptr(), out.data_ptr(), b, rows,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_cosine kernel launch failed: CUDA error {rc}")
-    fused_pairwise_cosine.launches += 1
-    return out
+    return scores_in_chunks(_aligned(x), _aligned(t), out, _launch)
 
 
 fused_pairwise_cosine.launches = 0

@@ -34,7 +34,13 @@ from incremental_multimodal_medical_learning_ii_torch.text.bank import (
 from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
 from incremental_multimodal_medical_learning_ii_torch.utils import config as tcfg
 
-from torch_port_helpers import assert_parity, biovil_numpy_params, to_numpy_tree
+from torch_biovil_fixture import TorchBioViLImage, randomize_bn_stats
+from torch_port_helpers import (
+    assert_parity,
+    biovil_numpy_params,
+    reference_bert_state_dict,
+    to_numpy_tree,
+)
 
 # scores: the 2e-4 embedding tolerance of the tower shrinks through the
 # cosine against unit-scale prompt means; preds are held where the
@@ -174,11 +180,106 @@ def test_predict_paths_and_cli(setup, tmp_path, capsys):
                    "--batch-size", "2", *paths])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-3].startswith("image,Atelectasis") and out[-1].startswith(paths[1])
-    for flag in ("--biovil-checkpoint", "--cxr-bert-snapshot", "--adapter-checkpoint",
-                 "--reference-image-adapter"):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            classify.build_classifier(p.parse_args(["--random-weights", "--device", "cpu",
-                                                    flag, "x"]))
+    # the one flag of the slice still waiting for the train-step slice
+    with pytest.raises(SystemExit, match="--adapter-checkpoint: not yet ported"):
+        classify.build_classifier(p.parse_args(["--random-weights", "--device", "cpu",
+                                                "--adapter-checkpoint", "x"]))
+
+
+# ----------------------------------------------------------------------
+# the classify CLI with the reference's weight files, against the JAX CLI
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def reference_files(tmp_path_factory):
+    """The reference's formats: BioViL image checkpoint, CXR-BERT state dict
+    + vocab, an HF snapshot directory, pickled reference adapters."""
+    import sys
+
+    from incremental_multimodal_medical_learning_ii_torch.models.convert import (
+        reference_models_stub,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import write_test_vocab
+
+    d = tmp_path_factory.mktemp("reference")
+    torch.manual_seed(0)
+    biovil = TorchBioViLImage().eval()
+    randomize_bn_stats(biovil, seed=2)
+    torch.save(biovil.state_dict(), d / "biovil.pt")
+    vocab = write_test_vocab(d / "vocab.txt")
+    sd = {k: torch.from_numpy(v) for k, v in reference_bert_state_dict(
+        4, hidden=64, layers=2, vocab=len(vocab.read_text().splitlines()), pos=48).items()}
+    torch.save(sd, d / "cxr_bert.pt")
+    snap = d / "snapshot"
+    snap.mkdir()
+    (snap / "config.json").write_text(json.dumps(dict(
+        vocab_size=sd["bert.embeddings.word_embeddings.weight"].shape[0], hidden_size=64,
+        num_hidden_layers=2, num_attention_heads=2, intermediate_size=96,
+        max_position_embeddings=48, type_vocab_size=2)))
+    torch.save(sd, snap / "pytorch_model.bin")
+    write_test_vocab(snap / "vocab.txt")
+    torch.manual_seed(1)
+    with reference_models_stub():
+        cls = sys.modules["models"].myMLP
+        cls.__module__, cls.__qualname__ = "models", "myMLP"
+        for name in ("image", "text"):
+            torch.save(cls(), d / f"{name}_adapter.pt")
+    return d
+
+
+@pytest.mark.parametrize("route", ["checkpoint", "snapshot+adapters"])
+def test_classify_cli_with_reference_weights_matches_jax_cli(setup, reference_files, route):
+    """Both CLIs build their classifier from the same files; the banks agree
+    to the BERT tolerance and, run in fp32 from the pieces each CLI built,
+    the scores to 1e-4 (the CLIs themselves serve in bf16)."""
+    from incremental_multimodal_medical_learning_ii_tpu.cli import classify as jclassify
+    from incremental_multimodal_medical_learning_ii_torch.cli import classify
+
+    _, _, images = setup
+    d = reference_files
+    flags = ["--biovil-checkpoint", str(d / "biovil.pt"), "--size", "64", "--pad-to", "128",
+             "--batch-size", "2"]
+    if route == "checkpoint":
+        flags += ["--cxr-bert-checkpoint", str(d / "cxr_bert.pt"), "--cxr-bert-vocab",
+                  str(d / "vocab.txt")]
+    else:
+        flags += ["--cxr-bert-snapshot", str(d / "snapshot"), "--max-emb", "--new-prompts",
+                  "--reference-image-adapter", str(d / "image_adapter.pt"),
+                  "--reference-text-adapter", str(d / "text_adapter.pt")]
+    jp, tp = argparse.ArgumentParser(), argparse.ArgumentParser()
+    jclassify.add_classifier_args(jp)
+    classify.add_classifier_args(tp)
+    jclf = jclassify.build_classifier(jp.parse_args(flags))
+    tclf = classify.build_classifier(tp.parse_args(flags + ["--device", "cpu"]))
+    for name in ("pos", "neg"):
+        assert_parity(f"classify CLI ({route}) bank {name}", getattr(tclf.bank, name).numpy(),
+                      np.asarray(getattr(jclf.bank, name)), 3e-5)
+    assert tclf.cfg.prompt_mode.value == jclf.cfg.prompt_mode.value
+    assert (tclf.cfg.image_adapter, tclf.cfg.text_adapter) == (jclf.cfg.image_adapter,
+                                                              jclf.cfg.text_adapter)
+    kw = {k: v for k, v in KW.items() if k != "dtype"}
+    jfp32 = JaxClassifier(jclf.image_params, jclf.bank, cfg=jclf.cfg,
+                          adapter_params=jclf.adapter_params, dtype=jnp.float32, **kw)
+    tfp32 = ChexpertClassifier(tclf.image_params, tclf.bank, cfg=tclf.cfg,
+                               adapter_params=tclf.adapter_params or None, dtype=torch.float32,
+                               device="cpu", **kw)
+    assert_parity(f"classify CLI ({route}) scores", tfp32.predict_arrays(images)[0],
+                  np.asarray(jfp32.predict_arrays(images)[0]), SCORE_ATOL)
+
+
+@pytest.mark.parametrize("given", ["--cxr-bert-checkpoint", "--cxr-bert-vocab"])
+def test_half_given_cxr_bert_pair_exits(reference_files, given):
+    from incremental_multimodal_medical_learning_ii_tpu.cli import classify as jclassify
+    from incremental_multimodal_medical_learning_ii_torch.cli import classify
+
+    flags = ["--random-weights", given, str(reference_files / "vocab.txt")]
+    jp, tp = argparse.ArgumentParser(), argparse.ArgumentParser()
+    jclassify.add_classifier_args(jp)
+    classify.add_classifier_args(tp)
+    with pytest.raises(SystemExit) as jerr:
+        jclassify.build_classifier(jp.parse_args(flags))
+    with pytest.raises(SystemExit) as err:
+        classify.build_classifier(tp.parse_args(flags + ["--device", "cpu"]))
+    assert str(err.value) == str(jerr.value) and "go together" in str(err.value)
 
 
 # ----------------------------------------------------------------------

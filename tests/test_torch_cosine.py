@@ -80,3 +80,28 @@ def test_cosine_to_banks_and_masked_mean(rng):
 def test_fused_wrapper_empty_batch():
     bank = torch.ones(10, 128)
     assert fused_pairwise_cosine(torch.zeros(0, 128), bank).shape == (0, 10)
+
+
+@pytest.mark.parametrize("rows", [1, 255, 256, 257, 300, 700])
+def test_bank_chunking_arithmetic(rng, rows):
+    """A bank of more than 256 rows goes to the kernel in chunks of at most
+    256 rows, each into its column slice: the chunk loop, run with the
+    plain version in place of a launch, rebuilds the whole product."""
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        MAX_BANK_ROWS,
+        scores_in_chunks,
+    )
+
+    x, bank = (torch.from_numpy(a) for a in _operands(rng, 9, rows))
+    chunks = []
+
+    def plain_launch(x_, t_, out_cols):
+        assert t_.shape[0] <= MAX_BANK_ROWS and out_cols.stride(0) == rows
+        chunks.append(t_.shape[0])
+        out_cols.copy_(tcos.pairwise_cosine(x_, t_))
+
+    out = scores_in_chunks(x, bank, torch.full((9, rows), float("nan")), plain_launch)
+    assert chunks == [min(MAX_BANK_ROWS, rows - s) for s in range(0, rows, MAX_BANK_ROWS)]
+    # one product against several: the matmul may block the sum otherwise
+    np.testing.assert_allclose(out.numpy(), tcos.pairwise_cosine(x, bank).numpy(), atol=ATOL,
+                               rtol=0)

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: it imports no JAX and nothing of the JAX
-package, and its entry points do not quietly run on the CPU."""
+"""The PyTorch port stands alone: it imports no JAX, nothing of the JAX
+package and none of the packages the card's machine lacks (transformers,
+safetensors, matplotlib, sklearn), and its entry points do not quietly run
+on the CPU."""
 
 import ast
 import os
@@ -12,7 +14,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "incremental_multimodal_medical_learning_ii_torch"
-FORBIDDEN = ("jax", "jaxlib", "incremental_multimodal_medical_learning_ii_tpu")
+FORBIDDEN = ("jax", "jaxlib", "incremental_multimodal_medical_learning_ii_tpu",
+             "transformers", "safetensors", "matplotlib", "sklearn")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -108,11 +111,46 @@ def test_kernel_wrappers_refuse_foreign_devices():
     assert fused_pairwise_cosine.launches == before  # the plain path counts nothing
 
 
+@pytest.mark.parametrize("where", ["meta", "mixed"])
+def test_flash_wrapper_refuses_foreign_devices(where):
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+    )
+
+    q = torch.zeros(1, 2, 8, 64, device="meta")
+    seg = torch.ones(1, 8, dtype=torch.int32, device="meta" if where == "meta" else "cpu")
+    with pytest.raises(ValueError, match="meta"):
+        flash_attention(q, q, q, seg, seg, 0.125)
+    before = flash_attention.launches
+    cpu, cpu_seg = torch.ones(1, 2, 8, 64), torch.ones(1, 8, dtype=torch.int32)
+    out = flash_attention(cpu, cpu, cpu, cpu_seg, cpu_seg, 0.125)
+    assert out.shape == cpu.shape and flash_attention.launches == before
+
+
+def test_text_engine_refuses_without_cuda(monkeypatch, tmp_path):
+    from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import (
+        init_cxr_bert,
+        tiny_bert_dims,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.engine import TextInferenceEngine
+    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import (
+        PromptTokenizer,
+        write_test_vocab,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = init_cxr_bert(dims=tiny_bert_dims())
+    tokenizer = PromptTokenizer(write_test_vocab(tmp_path / "vocab.txt"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TextInferenceEngine(model, tokenizer)
+    assert TextInferenceEngine(model, tokenizer, device="cpu").device.type == "cpu"
+
+
 def test_kernel_build_is_lazy_and_named_by_content():
     """Nothing builds at import; the library name follows the source."""
     from incremental_multimodal_medical_learning_ii_torch.ops import cuda_build
 
-    assert set(cuda_build.SOURCES) == {"fused_cosine", "fused_bottleneck"}
+    assert set(cuda_build.SOURCES) == {"fused_cosine", "fused_bottleneck", "flash_attention"}
     for name, src in cuda_build.SOURCES.items():
         assert (cuda_build.CSRC_DIR / src).exists()
         path = cuda_build.library_path(name)

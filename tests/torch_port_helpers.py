@@ -83,3 +83,43 @@ def bf16_ulps(a: np.ndarray, ref: np.ndarray) -> np.ndarray:
     mag = np.maximum(np.abs(np.asarray(ref, np.float64)), 1.0)
     ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)  # bf16 keeps 8 significant bits
     return np.abs(np.asarray(a, np.float64) - ref) / ulp
+
+
+def reference_bert_state_dict(seed=0, projection=True, decoder_bias="cls.predictions.decoder.bias",
+                              hidden=64, layers=2, inter=96, vocab=200, pos=40, proj=128):
+    """A BertForMaskedLM (+ CXR-BERT projection head) state dict in the
+    reference's key layout, made with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return rng.normal(size=shape).astype(np.float32) * 0.05
+
+    sd = {"bert.embeddings.word_embeddings.weight": w(vocab, hidden),
+          "bert.embeddings.position_embeddings.weight": w(pos, hidden),
+          "bert.embeddings.token_type_embeddings.weight": w(2, hidden),
+          "bert.embeddings.position_ids": np.arange(pos, dtype=np.int64)[None]}
+
+    def linear(prefix, dout, din):
+        sd[prefix + ".weight"], sd[prefix + ".bias"] = w(dout, din), w(dout)
+
+    def ln(prefix, d):
+        sd[prefix + ".weight"], sd[prefix + ".bias"] = 1 + w(d), w(d)
+
+    ln("bert.embeddings.LayerNorm", hidden)
+    for li in range(layers):
+        p = f"bert.encoder.layer.{li}."
+        for name in ("query", "key", "value"):
+            linear(p + "attention.self." + name, hidden, hidden)
+        linear(p + "attention.output.dense", hidden, hidden)
+        ln(p + "attention.output.LayerNorm", hidden)
+        linear(p + "intermediate.dense", inter, hidden)
+        linear(p + "output.dense", hidden, inter)
+        ln(p + "output.LayerNorm", hidden)
+    linear("cls.predictions.transform.dense", hidden, hidden)
+    ln("cls.predictions.transform.LayerNorm", hidden)
+    sd[decoder_bias] = w(vocab)
+    if projection:
+        linear("cls_projection_head.dense_to_hidden", proj, hidden)
+        ln("cls_projection_head.LayerNorm", proj)
+        linear("cls_projection_head.dense_to_output", proj, proj)
+    return sd
