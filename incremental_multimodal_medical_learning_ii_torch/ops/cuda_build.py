@@ -10,7 +10,9 @@ first call that needs a kernel builds it, and :func:`build` compiles
 several sources in parallel (one ``nvcc`` each).
 
 A launcher returns the CUDA error code of its launch (0 on success); the
-wrappers raise on anything else.
+wrappers raise on anything else.  :func:`launcher` binds a launcher's
+``argtypes`` once and caches it, so a wrapper's call costs one dict lookup
+on the host beside the launch itself.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -41,6 +45,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_launchers: Dict[Tuple[str, str], Callable] = {}
 
 
 def nvcc_path() -> str:
@@ -103,3 +108,22 @@ def load(name: str) -> ctypes.CDLL:
             path = build([name])[name]
             lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def launcher(name: str, symbol: str, argtypes: list) -> Callable:
+    """A launcher of kernel ``name``, its ``argtypes`` bound and ``restype``
+    set to ``c_int`` on the first call; later calls return the cached
+    function without a lock or an attribute lookup."""
+    fn = _launchers.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _launchers[(name, symbol)] = fn
+    return fn
+
+
+def current_stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s card, as an int,
+    without building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

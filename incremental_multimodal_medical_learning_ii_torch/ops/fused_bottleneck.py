@@ -20,8 +20,14 @@ import torch
 import torch.nn.functional as F
 
 from incremental_multimodal_medical_learning_ii_torch.models.resnet import BN_EPS
+from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import current_stream, launcher
 
 Folded = Dict[str, List[torch.Tensor]]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
 
 
 def _fold_conv_bn(weight: torch.Tensor, bn) -> tuple:
@@ -123,16 +129,7 @@ def _kernel_weights(folded: Folded, device: torch.device) -> list:
 
 def _conv_gemm(a0, w0, taps, a1, w1, bias, resid, relu: bool) -> torch.Tensor:
     """One launch of the implicit-GEMM kernel: NHWC bf16 in, NHWC bf16 out."""
-    from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import load
-
-    lib = load("fused_bottleneck")
-    fn = lib.conv_gemm_bf16_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = launcher("fused_bottleneck", "conv_gemm_bf16_launch", _ARGTYPES)
     n, h, w, c0 = a0.shape
     cout = w0.shape[0]
     out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=a0.device)
@@ -141,8 +138,7 @@ def _conv_gemm(a0, w0, taps, a1, w1, bias, resid, relu: bool) -> torch.Tensor:
             w1.data_ptr() if w1 is not None else None,
             a1.shape[3] if a1 is not None else 0,
             bias.data_ptr(), resid.data_ptr() if resid is not None else None,
-            out.data_ptr(), n, h, w, cout, int(relu),
-            torch.cuda.current_stream(a0.device).cuda_stream)
+            out.data_ptr(), n, h, w, cout, int(relu), current_stream(a0))
     if rc != 0:
         raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA error {rc}")
     fused_bottleneck_layer.launches += 1

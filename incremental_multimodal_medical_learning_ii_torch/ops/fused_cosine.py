@@ -7,8 +7,12 @@
 kernel normalises both operands on chip and never writes a normalised
 intermediate to device memory.  It holds at most 256 bank rows in shared
 memory, so a larger bank goes in chunks of 256 rows, one launch each, into
-the output's column slices (the JAX kernel takes any bank).  No-grad paths
-only: it has no backward.
+the output's column slices (the JAX kernel takes any bank).
+
+No-grad paths only: the kernel has no backward.  As ``jax.grad`` through
+the Pallas kernel fails, the wrapper raises, on every device, when grad
+mode is on and an operand requires grad, instead of returning a result
+cut from the autograd graph.
 """
 
 from __future__ import annotations
@@ -19,15 +23,19 @@ from typing import Callable
 import torch
 
 from incremental_multimodal_medical_learning_ii_torch.ops.cosine import pairwise_cosine
+from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import current_stream, launcher
 
 DIM = 128  # the joint embedding width the kernel is built for
 MAX_BANK_ROWS = 256  # shared memory holds the normalised bank (128 KB at 256 rows)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 __all__ = ["fused_pairwise_cosine", "pairwise_cosine"]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
+    if not t.is_contiguous():
+        return t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -43,14 +51,9 @@ def scores_in_chunks(x: torch.Tensor, t: torch.Tensor, out: torch.Tensor,
 
 def _launch(x: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
     """One kernel launch: ``out`` is a column slice of a row-major (B, T) buffer."""
-    from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import load
-
-    fn = load("fused_cosine").fused_cosine_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), t.data_ptr(), out.data_ptr(), x.shape[0], t.shape[0], out.stride(0),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    fn = launcher("fused_cosine", "fused_cosine_launch", _ARGTYPES)
+    rc = fn(x.data_ptr(), t.data_ptr(), out.data_ptr(), x.size(0), t.size(0), out.stride(0),
+            current_stream(x))
     if rc != 0:
         raise RuntimeError(f"fused_cosine kernel launch failed: CUDA error {rc}")
     fused_pairwise_cosine.launches += 1
@@ -58,18 +61,29 @@ def _launch(x: torch.Tensor, t: torch.Tensor, out: torch.Tensor) -> None:
 
 def fused_pairwise_cosine(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(B, 128) x (T, 128) float32 -> (B, T) float32 cosine similarities."""
-    if x.device.type == "cpu" and t.device.type == "cpu":
-        return pairwise_cosine(x, t)
-    if x.device.type != "cuda" or t.device != x.device:
+    if torch.is_grad_enabled() and (x.requires_grad or t.requires_grad):
+        raise RuntimeError("fused_pairwise_cosine has no backward: score under torch.no_grad(), "
+                           "or use ops.cosine.pairwise_cosine where gradients must flow")
+    if not (x.is_cuda and t.is_cuda and t.get_device() == x.get_device()):
+        if x.device.type == "cpu" and t.device.type == "cpu":
+            return pairwise_cosine(x, t)
         raise ValueError(f"fused_pairwise_cosine: operands on {x.device} and {t.device}")
-    if x.dim() != 2 or t.dim() != 2 or x.shape[1] != DIM or t.shape[1] != DIM:
+    # the host's work per call is K1's latency at the serving batch: few
+    # tensor calls between here and the launch
+    if x.dim() != 2 or t.dim() != 2 or x.dtype != torch.float32 or t.dtype != torch.float32:
+        raise ValueError(f"expected float32 (B, {DIM}) x (T, {DIM}), got {x.dtype} "
+                         f"{tuple(x.shape)} x {t.dtype} {tuple(t.shape)}")
+    (b, dx), (n, dt) = x.shape, t.shape
+    if dx != DIM or dt != DIM:
         raise ValueError(f"expected (B, {DIM}) x (T, {DIM}), got {tuple(x.shape)} x {tuple(t.shape)}")
-    if x.dtype != torch.float32 or t.dtype != torch.float32:
-        raise ValueError(f"expected float32 operands, got {x.dtype} and {t.dtype}")
-    out = torch.empty((x.shape[0], t.shape[0]), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    out = x.new_empty((b, n))
+    if b == 0 or n == 0:
         return out
-    return scores_in_chunks(_aligned(x), _aligned(t), out, _launch)
+    x, t = _aligned(x), _aligned(t)
+    if n <= MAX_BANK_ROWS:  # one launch: no column views to build
+        _launch(x, t, out)
+        return out
+    return scores_in_chunks(x, t, out, _launch)
 
 
 fused_pairwise_cosine.launches = 0

@@ -1,6 +1,7 @@
 """Port ops/cosine.py + ops/fused_cosine.py against the JAX package's
 ops/cosine.py and its Pallas kernel (interpret mode)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,6 +81,28 @@ def test_cosine_to_banks_and_masked_mean(rng):
 def test_fused_wrapper_empty_batch():
     bank = torch.ones(10, 128)
     assert fused_pairwise_cosine(torch.zeros(0, 128), bank).shape == (0, 10)
+
+
+@pytest.mark.parametrize("operand", [0, 1])
+def test_fused_cosine_refuses_gradients_like_jax(rng, operand):
+    """No backward: where ``jax.grad`` through the Pallas kernel fails,
+    the wrapper raises (on every device) instead of returning a result cut
+    from the autograd graph; under ``torch.no_grad()`` it scores as the
+    kernel does."""
+    x, bank = _operands(rng, 16, 10)
+    with pytest.raises(ValueError, match="Linearization failed"):
+        jax.grad(lambda a, b: pallas_pairwise_cosine(a, b, interpret=True).sum(),
+                 argnums=operand)(jnp.asarray(x), jnp.asarray(bank))
+    ours = [torch.from_numpy(x), torch.from_numpy(bank)]
+    ours[operand].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_pairwise_cosine(*ours)
+    with torch.no_grad():
+        got = fused_pairwise_cosine(*ours)
+    assert not got.requires_grad
+    ref = np.asarray(pallas_pairwise_cosine(jnp.asarray(x), jnp.asarray(bank), interpret=True))
+    assert_parity(f"fused_pairwise_cosine under no_grad (operand {operand} requires grad)",
+                  got.numpy(), ref, ATOL)
 
 
 @pytest.mark.parametrize("rows", [1, 255, 256, 257, 300, 700])

@@ -156,3 +156,23 @@ def test_kernel_build_is_lazy_and_named_by_content():
         path = cuda_build.library_path(name)
         assert path.parent == cuda_build.BUILD_DIR and path.name.startswith(name + "-")
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("module,symbol", [
+    ("fused_cosine", "fused_cosine_launch"),
+    ("fused_bottleneck", "conv_gemm_bf16_launch"),
+    ("flash_attention", "flash_attention_launch"),
+])
+def test_launcher_signatures_match_the_bound_argtypes(module, symbol):
+    """A wrapper binds its launcher's ``argtypes`` once (ctypes checks
+    nothing against the C side): their number is the C launcher's."""
+    import importlib
+    import re
+
+    from incremental_multimodal_medical_learning_ii_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / cuda_build.SOURCES[module]).read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+    assert m, f"{symbol} not in {cuda_build.SOURCES[module]}"
+    wrapper = importlib.import_module(f"incremental_multimodal_medical_learning_ii_torch.ops.{module}")
+    assert len(m.group(1).split(",")) == len(wrapper._ARGTYPES)
