@@ -10,21 +10,24 @@ and without the final result line:
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
 2. build every hand-written kernel of the serving path from ``csrc/``
    (one ``nvcc`` per source, in parallel); the ``ptxas -v`` report of every
-   instantiation (no spills allowed in K3's bf16 kernel);
+   instantiation (no spills allowed in K3's bf16 kernel nor in K2);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (fp32 with TF32 off); K1 and K3 refuse
-   an operand that requires grad under grad mode (no backward kernel);
+   shapes the serving path gives it (fp32 with TF32 off); K2 at both
+   serving crops, (3, 40, 24, 64) and ragged tiles ((3, 37, 21, 64), an
+   image smaller than a tile), each block alone and the chained layer; K1, K2 and K3 refuse an operand that requires grad under
+   grad mode (no backward kernel);
 4. small-input check: the fp32 classifier on the card against the same
    classifier on the CPU (plain versions);
 5. the serving path at full width: ``ChexpertClassifier`` with seeded
    random BioViL ResNet-50 weights, the synthetic bank of the 5
    competition tasks, 512^2 crops, batch 16, bf16, ``fused_layer1=True``,
-   in MEAN then MAX mode, with the kernels' launch counts read around it;
-   compared with the stock cuDNN forward and the plain scorer;
+   in MEAN then MAX mode, with the kernels' launch counts read around it
+   (K2: one launch per bottleneck block, 3 per forward); compared with the
+   stock cuDNN forward and the plain scorer;
 6. HTTP: ``make_server`` with micro-batching, concurrent requests;
 7. times with CUDA events (kernels, plain versions, library calls; K1
-   against ``torch.matmul`` as medians of 5 rounds in turns) and
-   host-clock serving latency;
+   against ``torch.matmul`` and K2 against the cuDNN bf16 chain as medians
+   of 5 rounds in turns) and host-clock serving latency;
 8. the flash-attention kernel against its plain version on the card:
    BERT-base report length (32, 12, 512, 64) with ragged lengths, hd 128,
    S = 77 and 200 with padding, a row with one valid token, lengths on
@@ -81,6 +84,9 @@ TEXT_BF16_COS = 0.999  # flash vs dense encode, per batch row (valid positions) 
 TEXT_F32_ATOL = 1e-4  # flash vs dense projected embeddings, fp32
 BANK_ATOL = 3e-5  # the BERT parity tolerance: the card's bank vs the CPU build
 LAYER_SHAPES = [(16, 128, 128, 64), (2, 120, 120, 64)]  # 512^2 batch 16; the 480 crop
+# + a small crop, and K2's ragged 8 x 8 tiles: on both axes, and an image smaller than a tile
+LAYER_CHECK_SHAPES = LAYER_SHAPES + [(3, 40, 24, 64), (3, 37, 21, 64), (1, 5, 7, 64)]
+K2_KERNEL = "bottleneck_block_kernel"
 LAYER_REL = 0.02  # one block, kernel vs plain from the same input
 LAYER_CHAIN_REL = 0.06  # the three chained blocks (see kernel_checks)
 LAYER_COS = 0.9999
@@ -235,6 +241,7 @@ def kernel_checks(model, bank, results):
     from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import PromptBank
     from incremental_multimodal_medical_learning_ii_torch.ops.cosine import masked_mean
     from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
+        Folded,
         fold_bottleneck_layer,
         fused_bottleneck_layer,
         fused_bottleneck_layer_reference,
@@ -303,9 +310,19 @@ def kernel_checks(model, bank, results):
     # against itself with fp64 sums ("order floor" below) shows the same.
     # So the whole layer is held to the JAX kernel test's bar
     # (tests/test_pallas_bottleneck.py: rel < 0.06, cos > 0.9999).
-    folded = {k: [t.to(dev) for t in v] for k, v in fold_bottleneck_layer(model.encoder.layer1).items()}
+    folded = Folded({k: [t.to(dev) for t in v]
+                     for k, v in fold_bottleneck_layer(model.encoder.layer1).items()})
+    # no backward kernel: an input or weight that requires grad is refused
+    # under grad mode (as jax.grad through the Pallas kernel fails)
+    xg = torch.randn(1, 8, 16, 64, device=dev, generator=g).to(torch.bfloat16).requires_grad_(True)
+    check(raises(lambda: fused_bottleneck_layer(xg, folded)), "K2 took an input that requires grad")
+    wg = Folded({k: [t.detach().clone().requires_grad_(k == "w2") for t in v] for k, v in folded.items()})
+    check(raises(lambda: fused_bottleneck_layer(xg.detach(), wg)), "K2 took a weight that requires grad")
+    with torch.no_grad():
+        check(fused_bottleneck_layer(xg, wg).shape == (1, 8, 16, 256), "K2 under no_grad")
+    log("  K2 refuses an input or a weight that requires grad under grad mode; runs under no_grad")
     layer_err = {}
-    for shape in LAYER_SHAPES:
+    for shape in LAYER_CHECK_SHAPES:
         x = torch.randn(*shape, device=dev, generator=g).abs().to(torch.bfloat16)
         got = fused_bottleneck_layer(x, folded)
         ref = fused_bottleneck_layer_reference(x, folded)
@@ -313,7 +330,8 @@ def kernel_checks(model, bank, results):
         m = layer_metrics(got, ref)
         block_rel, t = [], x
         for bi in range(len(folded["w1"])):
-            one = {k: v[bi:bi + 1] if k != "wd" else (v if bi == 0 else []) for k, v in folded.items()}
+            one = Folded({k: v[bi:bi + 1] if k != "wd" else (v if bi == 0 else [])
+                          for k, v in folded.items()})
             block_rel.append(layer_metrics(fused_bottleneck_layer(t, one),
                                            fused_bottleneck_layer_reference(t, one))["rel"])
             t = fused_bottleneck_layer_reference(t, one)
@@ -429,15 +447,18 @@ def time_kernels(folded, cases, results):
         lib_cos = float((lib_out * ref).sum() / (lib_out.norm() * ref.norm()))
         check(lib_cos > EMB_COS, f"cuDNN yardstick disagrees with the plain layer: cos {lib_cos}")
         bound, by, flops = layer_bound_ms(shape, folded)
-        ms = cuda_time_ms(lambda: fused_bottleneck_layer(x, folded), 20)
-        layer_times[str(shape)] = dict(
-            ms=ms, plain_ms=cuda_time_ms(lambda: fused_bottleneck_layer_reference(x, folded), 5),
-            library_ms=cuda_time_ms(lambda: lib(x), 20), bound_ms=bound, bound_by=by,
-            tflops=flops / ms / 1e9, library_cos_vs_plain=lib_cos,
-            kernel_device_ms=profiled_device_ms(lambda: fused_bottleneck_layer(x, folded),
-                                                fused_bottleneck_layer, "conv_gemm_kernel", ms,
-                                                bound),
-        )
+        with torch.no_grad():
+            # event times: medians of 5 rounds in turns (kernel, cuDNN chain)
+            med = alternating_ms({"ms": lambda: fused_bottleneck_layer(x, folded),
+                                  "library_ms": lambda: lib(x)}, iters=20)
+            layer_times[str(shape)] = dict(
+                **med, plain_ms=cuda_time_ms(lambda: fused_bottleneck_layer_reference(x, folded), 5),
+                bound_ms=bound, bound_by=by, tflops=flops / med["ms"] / 1e9,
+                library_cos_vs_plain=lib_cos,
+                kernel_device_ms=profiled_device_ms(lambda: fused_bottleneck_layer(x, folded),
+                                                    fused_bottleneck_layer, K2_KERNEL, med["ms"],
+                                                    bound),
+            )
         log(f"  K2 {shape}: {json.dumps(layer_times[str(shape)])}")
     results["layer_times"] = layer_times
 
@@ -521,10 +542,13 @@ def serving(model, bank, results):
     launches = {"fused_cosine": fused_pairwise_cosine.launches,
                 "fused_bottleneck": fused_bottleneck_layer.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  main path: 2 modes x (48 + 1 lone) images in {wall:.3f} s; launches {launches}; "
-        f"peak device memory {peak:.2f} GiB")
+    # one image forward per batch of 16 (the lone image is a batch of its own)
+    forwards = len(clfs) * (-(-len(images) // kw["batch_size"]) + 1)
+    log(f"  main path: 2 modes x (48 + 1 lone) images in {wall:.3f} s; launches {launches} "
+        f"over {forwards} forwards; peak device memory {peak:.2f} GiB")
     check(launches["fused_cosine"] > 0, "the serving path never launched the fused cosine kernel")
-    check(launches["fused_bottleneck"] > 0, "the serving path never launched the fused layer1 kernel")
+    check(launches["fused_bottleneck"] == 3 * forwards,
+          f"K2 launched {launches['fused_bottleneck']} times, not 3 per forward ({forwards})")
     results["launches"] = launches
     results["peak_memory_gib"] = peak
 
@@ -1012,6 +1036,7 @@ def bank_from_weights(model, images, results):
     check(scores.shape == preds.shape == (16, 5) and bool(np.isfinite(scores).all())
           and bool(((scores >= 0) & (scores <= 1)).all()), "scores with the CXR-BERT bank")
     check(out["launches"]["fused_cosine"] > 0, "serving with the CXR-BERT bank skipped K1")
+    check(out["launches"]["fused_bottleneck"] == 3, "serving with the CXR-BERT bank: K2 not 3 launches")
     log(f"  bank from weights: {json.dumps(out)}")
     results["bank_from_weights"] = out
 
@@ -1131,10 +1156,11 @@ def main(argv=None) -> int:
     for entry, rep in ptxas.items():
         log(f"  {entry}: {rep}")
     for entry, rep in ptxas.items():
-        if "flash_fwd_bf16_kernel" in entry:
+        if "flash_fwd_bf16_kernel" in entry or K2_KERNEL in entry:
             check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
                   f"{entry} spills: {rep}")
     check(sum("flash_fwd_bf16_kernel" in e for e in ptxas) == 2, "no ptxas report for K3 bf16")
+    check(sum(K2_KERNEL in e for e in ptxas) == 2, "no ptxas report for K2's two instantiations")
 
     model = init_biovil_image_model(torch.Generator().manual_seed(0))
     bank = build_prompt_bank(synthetic_encode_fn(27), create_prompts(CHEXPERT_COMPETITION_TASKS),
@@ -1181,7 +1207,7 @@ def main(argv=None) -> int:
              max_abs_err=results["layer_check"]["(16, 128, 128, 64)"]["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],
-             kernel_device_ms=k2["kernel_device_ms"]),
+             kernel_device_ms=k2["kernel_device_ms"], tflops=k2["tflops"]),
         dict(name="flash_attention", route="cuda", source=f"{PACKAGE}/csrc/flash_attention.cu",
              replaces="incremental_multimodal_medical_learning_ii_tpu/models/cxr_bert.py:197",
              launches=results["text_tower"]["launches"]["flash_attention"],

@@ -81,14 +81,10 @@
 // TF32: the parity default is fp32 at HIGHEST); Q, K, V and P in shared
 // memory; one stage.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
+#include "sm90.cuh"
 
 namespace {
 
@@ -113,80 +109,8 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// PTX wrappers: mbarriers, TMA, wgmma
+// wgmma shapes of this kernel (the shared PTX wrappers are in sm90.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the barrier's phase of parity ``parity`` has completed.  A
-// wait that never ends (a fault in the pipeline) traps after ~4e9 cycles
-// (about two seconds), so the launch fails with an error instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - start > 4000000000LL) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-d tensor map into shared memory; completes on ``bar``.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for a tile written by TMA with 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the
-// next 64-column group ``lbo`` bytes on (used by MN-major operands only).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator registers across the
-// asynchronous wgmma instructions that read and write them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // D (64 x 64, fp32) = A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T, plus
 // D if ``accumulate``
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t da, uint64_t db, int accumulate) {
@@ -248,14 +172,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Two floats rounded to bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v;
-  v.x = __float2bfloat16_rn(lo);
-  v.y = __float2bfloat16_rn(hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
@@ -434,7 +350,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                              desc_sw128(ktile + (kk >> 2) * L::kKHalf + off, 16), kk > 0);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs<32>(s);
 
         // scale (log2 units), mask, and the new row max.  Element i of the
@@ -502,7 +418,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
             wgmma_rs_m64n128k16(o, a, dv);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs<HD / 2>(o);
       }
       __syncwarp();
@@ -674,43 +590,6 @@ __global__ void __launch_bounds__(256) flash_fwd_f32_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < kDj; ++j) og[(long long)row * p.o_s + tx + 16 * j] = acc[i][j] * inv;
   }
-}
-
-// The dynamic shared-memory attribute is a property of the kernel on one
-// device: set it once on each card the process launches on (a bit per
-// device ordinal in ``done``; ordinals past 63 set it on every launch).
-cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)sym;
-  }
-  return fn;
 }
 
 // A bf16 (B, nh, S, hd) view as the tensor (hd, S, nh, B), element strides

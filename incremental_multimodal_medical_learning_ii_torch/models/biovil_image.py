@@ -97,9 +97,12 @@ def biovil_image_forward(
     """(B, H, W, C) float images in [0, 1] -> global + patch embeddings.
 
     ``fused_layer1=True`` runs layer1's 3-block chain through the fused
-    kernel (``ops/fused_bottleneck.py``); it needs ``dtype=torch.bfloat16``.
-    Mean/pool accumulations run in fp32 under bf16 compute.  The int8 trunk
-    of the JAX package is not ported yet.
+    kernel (``ops/fused_bottleneck.py``); it needs ``dtype=torch.bfloat16``
+    and no gradients through layer1 (the kernel has no backward).  Layer1
+    is folded once and kept with the model (refolded only after a change to
+    its weights).  Mean/pool
+    accumulations run in fp32 under bf16 compute.  The int8 trunk of the
+    JAX package is not ported yet.
     """
     layer1_fn = None
     if fused_layer1:
@@ -110,11 +113,11 @@ def biovil_image_forward(
             # inside an fp32 forward would silently downgrade layer1
             raise ValueError("fused_layer1 requires dtype=torch.bfloat16")
         from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
-            fold_bottleneck_layer,
+            folded_layer,
             fused_bottleneck_layer,
         )
 
-        folded = fold_bottleneck_layer(model.encoder.layer1)
+        folded = folded_layer(model.encoder.layer1)
         layer1_fn = lambda x: fused_bottleneck_layer(x, folded)  # noqa: E731
     if int8:
         raise NotImplementedError("the int8 trunk is not yet ported to the PyTorch package")

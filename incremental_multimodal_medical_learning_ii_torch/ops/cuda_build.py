@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``: no
 PyTorch headers, so a build takes seconds.  Libraries go into
 ``_build/`` beside this package (listed in ``.gitignore``), named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is compiled or loaded at import: the
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.  Nothing is compiled or loaded at import: the
 first call that needs a kernel builds it, and :func:`build` compiles
 several sources in parallel (one ``nvcc`` each).
 
@@ -59,8 +59,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of kernel ``name``, named by a hash of its source, every
+    shared header in ``csrc/`` (an edited header rebuilds every kernel) and
+    the flags."""
+    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

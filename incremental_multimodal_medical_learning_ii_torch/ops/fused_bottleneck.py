@@ -2,19 +2,27 @@
 ``ops/pallas_bottleneck.py``).
 
 :func:`fold_bottleneck_layer` folds frozen BN into the weights, in the
-JAX package's layout and with its b3+bd merge.  :func:`fused_bottleneck_layer`
-runs the whole stride-1 layer (3 bottleneck blocks, 64 -> 256 channels)
-through the hand-written CUDA kernel ``csrc/fused_bottleneck.cu`` (three
-launches a block), and :func:`fused_bottleneck_layer_reference` is its
-plain PyTorch version: the same block math in fp32 ops on bf16-valued
-tensors, rounding to bf16 where the TPU kernel rounds.  The wrapper takes
-the plain version for a tensor on the CPU and the kernel for one on CUDA.
+JAX package's layout and with its b3+bd merge; :func:`folded_layer` keeps
+that fold with the layer, so a model folds once and not on every forward.
+:func:`fused_bottleneck_layer` runs the whole stride-1 layer (3 bottleneck
+blocks, 64 -> 256 channels) through the hand-written CUDA kernel
+``csrc/fused_bottleneck.cu`` (one launch a block), and
+:func:`fused_bottleneck_layer_reference` is its plain PyTorch version: the
+same block math in fp32 ops on bf16-valued tensors, rounding to bf16 where
+the TPU kernel rounds.  The wrapper takes the plain version for a tensor
+on the CPU and the kernel for one on CUDA.
+
+No-grad paths only: the kernel has no backward.  As ``jax.grad`` through
+the Pallas kernel fails, the wrapper raises, on every device, when grad
+mode is on and ``x`` or a folded tensor requires grad, instead of
+returning a result cut from the autograd graph.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List
+import weakref
+from typing import Dict, List, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -22,12 +30,22 @@ import torch.nn.functional as F
 from incremental_multimodal_medical_learning_ii_torch.models.resnet import BN_EPS
 from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import current_stream, launcher
 
-Folded = Dict[str, List[torch.Tensor]]
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
+WIDTH, COUT = 64, 256  # the bottleneck width and output channels the kernel is built for
+ROW = 64  # channels in one 128-byte row of a weight tile
+
+
+class Folded(dict):
+    """``{name: per-block tensors}`` as :func:`fold_bottleneck_layer` returns
+    it.  ``kernel_weights`` keeps the kernel's layout of them per device,
+    made at the first launch there; the tensors are not to be changed
+    after folding."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kernel_weights: Dict[torch.device, list] = {}
 
 
 def _fold_conv_bn(weight: torch.Tensor, bn) -> tuple:
@@ -47,7 +65,7 @@ def fold_bottleneck_layer(layer) -> Folded:
     wd (Cin, Cout) in bf16; b1/b2 (1, Cm) and b3 (1, Cout) in fp32, with
     the downsample bias merged into b3 of the block that has one.
     """
-    out: Folded = {k: [] for k in ("w1", "b1", "w2", "b2", "w3", "b3", "wd")}
+    out = Folded({k: [] for k in ("w1", "b1", "w2", "b2", "w3", "b3", "wd")})
     for block in layer:
         k1, b1 = _fold_conv_bn(block.conv1.weight, block.bn1)
         k2, b2 = _fold_conv_bn(block.conv2.weight, block.bn2)
@@ -64,6 +82,22 @@ def fold_bottleneck_layer(layer) -> Folded:
             b3 = b3 + bd  # one combined bias for the residual sum
         out["b3"].append(b3.reshape(1, -1).to(torch.float32))
     return out
+
+
+_FOLDS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def folded_layer(layer) -> Folded:
+    """:func:`fold_bottleneck_layer` of ``layer``, kept with the layer and
+    folded again only when one of its parameters or buffers has changed:
+    in place (a new tensor version), or replaced, or moved to another
+    device (new storage)."""
+    key = tuple((t.data_ptr(), t.device, t._version)
+                for t in (*layer.parameters(), *layer.buffers()))
+    hit = _FOLDS.get(layer)
+    if hit is None or hit[0] != key:
+        hit = _FOLDS[layer] = (key, fold_bottleneck_layer(layer))
+    return hit[1]
 
 
 def fused_bottleneck_layer_reference(
@@ -103,42 +137,73 @@ def fused_bottleneck_layer_reference(
     return t
 
 
-def _kernel_weights(folded: Folded, device: torch.device) -> list:
-    """Per block: (w1, b1, w2, b2, w3, b3) in the kernel's layout, output
-    channel major with K contiguous; the 3x3 taps are dy-major
-    (k = (dy*3 + dx)*Cm + c)."""
+def _swizzle_rows(tile: torch.Tensor) -> torch.Tensor:
+    """(R, 64) -> the same rows in the 128-byte swizzle of shared memory
+    (TMA's SWIZZLE_128B): the 8-channel group q of row r holds the row's
+    group q ^ (r % 8)."""
+    r = tile.shape[0]
+    groups = tile.reshape(r, ROW // 8, 8)
+    idx = torch.arange(ROW // 8, device=tile.device)[None, :] ^ (
+        torch.arange(r, device=tile.device) % 8)[:, None]
+    return groups[torch.arange(r, device=tile.device)[:, None], idx].reshape(r, ROW)
+
+
+class BlockWeights(NamedTuple):
+    image: torch.Tensor  # bf16: the block's weights as the kernel's shared memory holds them
+    b1: torch.Tensor  # (64,) fp32
+    b2: torch.Tensor  # (64,) fp32
+    b3: torch.Tensor  # (256,) fp32, the downsample's bias included
+    downsample: bool  # Cin = 64 with the downsample product; else Cin = 256, identity
+
+
+def _kernel_weights(folded: Folded, device: torch.device) -> List[BlockWeights]:
+    """Per block, the kernel's weights on ``device``.  The image is a run
+    of 128-byte-swizzled tiles of 64-channel rows (:func:`_swizzle_rows`),
+    each output channel a row with its input channels along it: w1 as
+    Cin/64 tiles of 64 x 64 (input channels 64 k .. 64 k + 63), w2 as the
+    9 taps dy-major (tap dy*3 + dx) of 64 x 64, w3 as 256 x 64, and wd as
+    256 x 64 for the block with the downsample."""
     blocks = []
     for bi in range(len(folded["w1"])):
-        cm = folded["w1"][bi].shape[1]
+        w1 = folded["w1"][bi].t()  # (64, Cin)
+        cm = w1.shape[0]
+        # dx-major (dx, dy, c_in, c_out) -> (dy, dx, c_out, c_in)
+        w2 = folded["w2"][bi].reshape(3, 3, cm, cm).permute(1, 0, 3, 2)
+        tiles = [w1[:, k : k + ROW] for k in range(0, w1.shape[1], ROW)]
+        tiles += [w2[dy, dx] for dy in range(3) for dx in range(3)]
+        tiles.append(folded["w3"][bi].t())
+        down = bi == 0 and bool(folded["wd"])
+        if down:
+            tiles.append(folded["wd"][0].t())
+        image = torch.cat([_swizzle_rows(t.to(torch.bfloat16)).reshape(-1) for t in tiles])
 
-        def dev(t, dtype):
-            return t.to(device=device, dtype=dtype).contiguous()
+        def dev(t):
+            return t.reshape(-1).to(device=device, dtype=torch.float32).contiguous()
 
-        w2 = folded["w2"][bi].reshape(3, 3, cm, cm).permute(3, 1, 0, 2).reshape(cm, 9 * cm)
-        blocks.append((
-            dev(folded["w1"][bi].t(), torch.bfloat16),
-            dev(folded["b1"][bi].reshape(-1), torch.float32),
-            dev(w2, torch.bfloat16),
-            dev(folded["b2"][bi].reshape(-1), torch.float32),
-            dev(folded["w3"][bi].t(), torch.bfloat16),
-            dev(folded["b3"][bi].reshape(-1), torch.float32),
-        ))
-    wd = folded["wd"][0].t().to(device=device, dtype=torch.bfloat16).contiguous() if folded["wd"] else None
-    return blocks, wd
+        blocks.append(BlockWeights(image.to(device).contiguous(), dev(folded["b1"][bi]),
+                                   dev(folded["b2"][bi]), dev(folded["b3"][bi]), down))
+    return blocks
 
 
-def _conv_gemm(a0, w0, taps, a1, w1, bias, resid, relu: bool) -> torch.Tensor:
-    """One launch of the implicit-GEMM kernel: NHWC bf16 in, NHWC bf16 out."""
-    fn = launcher("fused_bottleneck", "conv_gemm_bf16_launch", _ARGTYPES)
-    n, h, w, c0 = a0.shape
-    cout = w0.shape[0]
-    out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=a0.device)
-    rc = fn(a0.data_ptr(), w0.data_ptr(), taps, c0,
-            a1.data_ptr() if a1 is not None else None,
-            w1.data_ptr() if w1 is not None else None,
-            a1.shape[3] if a1 is not None else 0,
-            bias.data_ptr(), resid.data_ptr() if resid is not None else None,
-            out.data_ptr(), n, h, w, cout, int(relu), current_stream(a0))
+def _check_widths(cin: int, folded: Folded) -> None:
+    """The widths the kernel's tiling takes: width 64, 256 outputs; a
+    block with the downsample takes 64 channels, one without 256."""
+    for bi, w1 in enumerate(folded["w1"]):
+        down = bi == 0 and bool(folded["wd"])
+        cm, cout = w1.shape[1], folded["w3"][bi].shape[1]
+        if w1.shape[0] != cin or cm != WIDTH or cout != COUT or cin != (WIDTH if down else COUT):
+            raise ValueError(f"unsupported widths in block {bi}: Cin={cin} (w1 takes "
+                             f"{w1.shape[0]}), width={cm}, Cout={cout}, downsample={down}")
+        cin = cout
+
+
+def _block(t: torch.Tensor, w: BlockWeights) -> torch.Tensor:
+    """One kernel launch: one block, NHWC bf16 in, (B, H, W, 256) bf16 out."""
+    fn = launcher("fused_bottleneck", "bottleneck_block_launch", _ARGTYPES)
+    n, h, wd, cin = t.shape
+    out = torch.empty((n, h, wd, COUT), dtype=torch.bfloat16, device=t.device)
+    rc = fn(t.data_ptr(), w.image.data_ptr(), w.b1.data_ptr(), w.b2.data_ptr(), w.b3.data_ptr(),
+            out.data_ptr(), n, h, wd, cin, int(w.downsample), current_stream(t))
     if rc != 0:
         raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA error {rc}")
     fused_bottleneck_layer.launches += 1
@@ -148,30 +213,32 @@ def _conv_gemm(a0, w0, taps, a1, w1, bias, resid, relu: bool) -> torch.Tensor:
 def fused_bottleneck_layer(x: torch.Tensor, folded: Folded) -> torch.Tensor:
     """(B, H, W, Cin) bf16 NHWC -> (B, H, W, Cout) bf16 through the layer.
 
-    On CUDA: the hand-written kernel, three launches a block (each counted
-    in ``fused_bottleneck_layer.launches``).  On the CPU: the plain version.
-    Needs Cin and the bottleneck width divisible by 32 and Cout by 64.
+    On CUDA: the hand-written kernel, one launch a block (each counted in
+    ``fused_bottleneck_layer.launches``), any H and W; the layer1 widths
+    only (Cin 64, width 64, Cout 256).  On the CPU: the plain version.
     """
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for ts in folded.values() for t in ts)):
+        raise RuntimeError("fused_bottleneck_layer has no backward: run it under torch.no_grad(), "
+                           "or use fused_bottleneck_layer_reference where gradients must flow")
     if x.device.type == "cpu":
         return fused_bottleneck_layer_reference(x, folded)
     if x.device.type != "cuda":
         raise ValueError(f"fused_bottleneck_layer: unsupported device {x.device}")
     if x.dim() != 4 or x.dtype != torch.bfloat16:
         raise ValueError(f"expected (B, H, W, C) bfloat16, got {tuple(x.shape)} {x.dtype}")
-    cin = x.shape[3]
-    cm = folded["w1"][0].shape[1]
-    cout = folded["w3"][0].shape[1]
-    if cin % 32 or cm % 32 or cout % 64 or folded["w1"][0].shape[0] != cin:
-        raise ValueError(f"unsupported widths Cin={cin}, Cm={cm}, Cout={cout}")
-    blocks, wd = _kernel_weights(folded, x.device)
+    _check_widths(x.shape[3], folded)
+    memo = getattr(folded, "kernel_weights", None)
+    blocks = memo.get(x.device) if memo is not None else None
+    if blocks is None:
+        blocks = _kernel_weights(folded, x.device)
+        if memo is not None:
+            memo[x.device] = blocks
     t = x.contiguous()
-    for bi, (w1, b1, w2, b2, w3, b3) in enumerate(blocks):
-        a = _conv_gemm(t, w1, 1, None, None, b1, None, relu=True)
-        hid = _conv_gemm(a, w2, 9, None, None, b2, None, relu=True)
-        if bi == 0 and wd is not None:
-            t = _conv_gemm(hid, w3, 1, t, wd, b3, None, relu=True)
-        else:
-            t = _conv_gemm(hid, w3, 1, None, None, b3, t, relu=True)
+    if t.data_ptr() % 16:  # TMA reads from 16-byte-aligned addresses
+        t = t.clone()
+    for w in blocks:
+        t = _block(t, w)
     return t
 
 

@@ -90,41 +90,185 @@ def test_wrapper_on_cpu_is_the_reference(case):
     )
 
 
+F64 = torch.float64  # the emulation's sums, and the plain version's it is held to
+
+
+def _unswizzle(flat, rows):
+    """A 128-byte-swizzled run of (rows, 64) bf16 back to row-major: the
+    8-channel group c of row r sits at group c ^ (r % 8)."""
+    t = flat.reshape(rows, 8, 8)
+    idx = torch.arange(8)[None, :] ^ (torch.arange(rows) % 8)[:, None]
+    return t[torch.arange(rows)[:, None], idx].reshape(rows, 64).to(F64)
+
+
+def _emulate_block(t, w):
+    """One launch of the CUDA kernel, tile by tile, in torch: 8 x 8 output
+    tiles, each from its 10 x 10 input halo (zeros outside the image, as
+    TMA fills them); ``a`` zeroed outside the image; bf16 where the kernel
+    rounds.  The sums are float64 (the tensor cores' fp32 order cannot be
+    reproduced here), held to the plain version with float64 sums, so what
+    can differ is the tiling, the halo, the mask and the layout.  The
+    weights come from the shared-memory image that ``_kernel_weights``
+    lays out (pins that layout on the CPU)."""
+    b, h, wd, cin = t.shape
+    img, tile = w.image, 64 * 64
+    n1 = cin // 64
+    w1 = torch.cat([_unswizzle(img[k * tile:(k + 1) * tile], 64) for k in range(n1)], 1)
+    w2 = [_unswizzle(img[(n1 + k) * tile:(n1 + k + 1) * tile], 64) for k in range(9)]
+    o3 = (n1 + 9) * tile
+    w3 = _unswizzle(img[o3:o3 + 4 * tile], 256)
+    assert img.numel() == o3 + (8 if w.downsample else 4) * tile
+    ty, tx = -(-h // 8), -(-wd // 8)
+    xp = torch.zeros(b, ty * 8 + 2, tx * 8 + 2, cin, dtype=F64)
+    xp[:, 1:h + 1, 1:wd + 1] = t.to(F64)
+    halo = xp.unfold(1, 10, 8).unfold(2, 10, 8).permute(0, 1, 2, 4, 5, 3)  # (b, ty, tx, 10, 10, c)
+    a = torch.relu(halo @ w1.T + w.b1.to(F64))
+    iy = torch.arange(ty)[:, None] * 8 - 1 + torch.arange(10)[None, :]
+    ix = torch.arange(tx)[:, None] * 8 - 1 + torch.arange(10)[None, :]
+    inside = ((iy >= 0) & (iy < h))[:, None, :, None] & ((ix >= 0) & (ix < wd))[None, :, None, :]
+    a = torch.where(inside[..., None], a, 0.0).to(torch.bfloat16).to(F64)
+    acc = sum(torch.cat([a[..., dy:dy + 8, dx:dx + 8, :] for dy in range(3)], -1)
+              @ torch.cat([w2[dy * 3 + dx] for dy in range(3)], 1).T for dx in range(3))
+    hid = torch.relu(acc + w.b2.to(F64)).to(torch.bfloat16).to(F64)
+    centre = halo[..., 1:9, 1:9, :]
+    out = hid @ w3.T + w.b3.to(F64)
+    if w.downsample:
+        out = out + centre @ _unswizzle(img[o3 + 4 * tile:], 256).T
+    else:
+        out = out + centre
+    out = torch.relu(out).to(torch.bfloat16)  # (b, ty, tx, 8, 8, 256)
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(b, ty * 8, tx * 8, -1)[:, :h, :wd]
+
+
 def _emulate_kernel(x, folded):
-    """The CUDA kernel's arithmetic in torch, from the weights in the
-    layout the kernel receives (``_kernel_weights``): pins that layout
-    (output-channel major, dy-major 3x3 taps) on the CPU."""
-    blocks, wd = tfb._kernel_weights(folded, torch.device("cpu"))
-
-    def gemm(a, w, taps, bias, extra=0.0, resid=None):
-        n, h, wd_, c = a.shape
-        if taps == 9:
-            ap = torch.nn.functional.pad(a.float(), (0, 0, 1, 1, 1, 1))
-            cols = torch.cat([ap[:, dy : dy + h, dx : dx + wd_] for dy in range(3) for dx in range(3)], -1)
-        else:
-            cols = a.float()
-        v = cols @ w.float().T + extra + bias
-        if resid is not None:
-            v = v + resid.float()
-        return torch.relu(v).to(torch.bfloat16)
-
     t = x.to(torch.bfloat16)
-    for bi, (w1, b1, w2, b2, w3, b3) in enumerate(blocks):
-        a = gemm(t, w1, 1, b1)
-        h = gemm(a, w2, 9, b2)
-        if bi == 0:
-            t = gemm(h, w3, 1, b3, extra=t.float() @ wd.float().T)
-        else:
-            t = gemm(h, w3, 1, b3, resid=t)
+    for w in tfb._kernel_weights(folded, torch.device("cpu")):
+        t = _emulate_block(t, w)
     return t
+
+
+def _assert_emulation_matches_reference(x, folded):
+    emu = _emulate_kernel(torch.from_numpy(x), folded).float().numpy()
+    ref = tfb.fused_bottleneck_layer_reference(torch.from_numpy(x), folded, F64).float().numpy()
+    assert emu.shape == ref.shape
+    ulps = bf16_ulps(emu, ref)
+    assert (emu == ref).mean() > 0.99 and (ulps > 1).mean() < 1e-3, ulps.max()
 
 
 def test_kernel_weight_layout(case):
     _, x, folded_t, _ = case
-    emu = _emulate_kernel(torch.from_numpy(x), folded_t).float().numpy()
-    ref = tfb.fused_bottleneck_layer_reference(torch.from_numpy(x), folded_t).float().numpy()
-    ulps = bf16_ulps(emu, ref)
-    assert (emu == ref).mean() > 0.99 and (ulps > 1).mean() < 1e-3, ulps.max()
+    _assert_emulation_matches_reference(x, folded_t)
+
+
+@pytest.mark.parametrize("shape", [(1, 40, 24, 64), (1, 120, 120, 64), (1, 37, 21, 64), (1, 5, 7, 64)])
+def test_kernel_tiles_at_ragged_geometries(case, shape):
+    """The serving crops' and other geometries: ragged edge tiles (37 x 21
+    leaves parts of 8 x 8 tiles outside the image; 5 x 7 is smaller than
+    one) and the halo mask on ``a`` at every image border (the relu(b1)
+    that the randomised BN puts on zero input would leak into conv2
+    without it)."""
+    _, _, folded_t, _ = case
+    x = (np.random.default_rng(2).normal(size=shape) * 0.5).astype(np.float32)
+    _assert_emulation_matches_reference(x, folded_t)
+
+
+def test_kernel_layout_refuses_other_widths(case):
+    _, _, folded_t, _ = case
+    with pytest.raises(ValueError, match="unsupported widths"):
+        tfb._check_widths(256, folded_t)  # block 0 takes 64 channels
+    narrow = {k: [t[..., :32] if k in ("w1", "b1") else t for t in v] for k, v in folded_t.items()}
+    with pytest.raises(ValueError, match="width=32"):
+        tfb._check_widths(64, narrow)
+
+
+@pytest.mark.parametrize("operand", ["x", "w1"])
+def test_fused_bottleneck_refuses_gradients_like_jax(case, operand):
+    """No backward: where ``jax.grad`` through the Pallas layer kernel
+    (interpret mode) fails, the wrapper raises on every device instead of
+    returning a result cut from the autograd graph; under
+    ``torch.no_grad()`` it computes as the plain version does."""
+    _, x, folded_t, folded_j = case
+    small = x[:1, :16, :16]
+    if operand == "x":
+        fn = lambda a: jpb.fused_bottleneck_layer(a, folded_j, rows_per_tile=16, interpret=True)
+        arg = jnp.asarray(small)
+    else:
+        fn = lambda w: jpb.fused_bottleneck_layer(
+            jnp.asarray(small), dict(folded_j, w1=[w.astype(jnp.bfloat16)] + folded_j["w1"][1:]),
+            rows_per_tile=16, interpret=True)
+        arg = jnp.asarray(folded_j["w1"][0], jnp.float32)
+    with pytest.raises(AssertionError):
+        jax.grad(lambda a: fn(a).astype(jnp.float32).sum())(arg)
+    xt = torch.from_numpy(small).to(torch.bfloat16)
+    folded = tfb.Folded({k: list(v) for k, v in folded_t.items()})
+    if operand == "x":
+        xt.requires_grad_(True)
+    else:
+        folded["w1"][0] = folded["w1"][0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfb.fused_bottleneck_layer(xt, folded)
+    with torch.no_grad():
+        got = tfb.fused_bottleneck_layer(xt, folded)
+        ref = tfb.fused_bottleneck_layer_reference(xt, folded)
+    assert not got.requires_grad
+    np.testing.assert_array_equal(got.float().numpy(), ref.float().numpy())
+
+
+def _biovil_with_random_bn():
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        init_biovil_image_model,
+    )
+
+    model = init_biovil_image_model()
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        for block in model.encoder.layer1:
+            for bn in (block.bn1, block.bn2, block.bn3):
+                bn.bias.copy_(torch.from_numpy(rng.normal(size=bn.bias.shape).astype(np.float32) * 0.1))
+    images = torch.from_numpy(rng.uniform(size=(1, 32, 32, 3)).astype(np.float32))
+    return model, images
+
+
+def test_layer1_is_folded_once_per_model(monkeypatch):
+    """Two forwards fold layer1 once, and give what a fresh fold gives, bit
+    for bit."""
+    import copy
+
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        biovil_image_forward,
+    )
+
+    model, images = _biovil_with_random_bn()
+    folds = []
+    real = tfb.fold_bottleneck_layer
+    monkeypatch.setattr(tfb, "fold_bottleneck_layer", lambda layer: folds.append(1) or real(layer))
+    run = lambda m: biovil_image_forward(m, images, dtype=torch.bfloat16,  # noqa: E731
+                                         fused_layer1=True).projected_patch_embeddings
+    first, second = run(model), run(model)
+    assert len(folds) == 1
+    fresh = run(copy.deepcopy(model))  # new tensors: folded anew
+    assert len(folds) == 2
+    assert torch.equal(first, second) and torch.equal(first, fresh)
+
+
+def test_inplace_bn_edit_refolds(monkeypatch):
+    """An in-place edit of a layer1 BN buffer changes the output exactly as
+    a fresh fold of the edited model does."""
+    import copy
+
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        biovil_image_forward,
+    )
+
+    model, images = _biovil_with_random_bn()
+    run = lambda m: biovil_image_forward(m, images, dtype=torch.bfloat16,  # noqa: E731
+                                         fused_layer1=True).projected_patch_embeddings
+    before = run(model)
+    with torch.no_grad():
+        model.encoder.layer1[1].bn2.var.mul_(2.0)
+    after = run(model)
+    assert not torch.equal(before, after)
+    assert torch.equal(after, run(copy.deepcopy(model)))
 
 
 @pytest.mark.parametrize("shape", [(1, 40, 24, 64), (1, 8, 8, 64)])

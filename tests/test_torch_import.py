@@ -54,7 +54,8 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])
 def test_no_jax_import_in_source(target):
-    files = sorted(PORT.rglob("*.py")) if target == "package" else [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) if target == "package"
+             else [REPO / "chip_smoke.py", REPO / "k2_breakdown.py"])
     assert files and all(f.exists() for f in files)
     for f in files:
         bad = [r for r in _imported_roots(f) if r in FORBIDDEN]
@@ -158,9 +159,27 @@ def test_kernel_build_is_lazy_and_named_by_content():
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` header renames (so rebuilds) every kernel's
+    library, not only an edited source."""
+    import shutil
+
+    from incremental_multimodal_medical_learning_ii_torch.ops import cuda_build
+
+    assert sorted(cuda_build.CSRC_DIR.glob("*.cuh")), "no shared header in csrc/"
+    for f in cuda_build.CSRC_DIR.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    before = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    header = sorted(tmp_path.glob("*.cuh"))[0]
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    assert all(before[n] != after[n] for n in cuda_build.SOURCES)
+
+
 @pytest.mark.parametrize("module,symbol", [
     ("fused_cosine", "fused_cosine_launch"),
-    ("fused_bottleneck", "conv_gemm_bf16_launch"),
+    ("fused_bottleneck", "bottleneck_block_launch"),
     ("flash_attention", "flash_attention_launch"),
 ])
 def test_launcher_signatures_match_the_bound_argtypes(module, symbol):
