@@ -49,7 +49,20 @@ and without the final result line:
    library yardstick and with skipping off; the plain version) in bf16 at
    report length and hd 128 and in fp32, text encodes in prompts/s (flash
    and dense at report length, dense at the bank's shape) and the bank
-   build.
+   build;
+12. the paper's experiment at the reference's scale (191,027 / 16,027 /
+   2,048 rows of synthetic 128-d embeddings, bs 6144, eval bs 1024, MLP
+   double adapter, Adam lr 1e-4, 10 epochs, the synthetic bank): K1 against
+   its plain version at the eval shapes (1024x10, 1024x(5 P_max)) and
+   timed; then the drivers' CLIs on the card, with their fused loops under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no call may synchronise
+   between upload and readback): joint, data-incremental over 20 parts with
+   myCL and threshold scheduling (per unit, then ``--fused-unit``, then
+   both again in turns) and class-incremental MORE_LABELS in MAX mode; K1's
+   launches in each run must equal what its eval passes imply; the same
+   runs on the CPU must agree with the card's (losses 1e-5, AUROC 1e-3,
+   myCL reset counts within 0.5% of the weights on 99% of the steps, and
+   on every step of one step from the same state).
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -262,7 +275,7 @@ def kernel_checks(model, bank, results):
     cases = {
         "serve-mean (16x10)": (torch.randn(16, d, device=dev, generator=g), mean_bank),
         "serve-max (16x%d)" % (c * p): (torch.randn(16, d, device=dev, generator=g), max_bank),
-        "eval (6144x10)": (torch.randn(6144, d, device=dev, generator=g), mean_bank),
+        "batch (6144x10)": (torch.randn(6144, d, device=dev, generator=g), mean_bank),
         "unaligned (37x23, zero rows)": (torch.randn(37, d, device=dev, generator=g),
                                          torch.randn(23, d, device=dev, generator=g)),
         "full bank (1000x128)": (torch.randn(1000, d, device=dev, generator=g),
@@ -421,7 +434,7 @@ def time_kernels(folded, cases, results):
 
     cos_times = {}
     for name in ("serve-mean (16x10)", [k for k in cases if k.startswith("serve-max")][0],
-                 "eval (6144x10)"):
+                 "batch (6144x10)"):
         x, t = cases[name]
         xn, tn = l2_normalize(x), l2_normalize(t)
         bound, by = cosine_bound_ms(x.shape[0], t.shape[0])
@@ -1107,6 +1120,401 @@ def text_times(model, ids, mask, results):
 
 
 # ----------------------------------------------------------------------
+# the paper's experiment: the three drivers over cached embeddings
+# ----------------------------------------------------------------------
+# the reference's scale (cli/reproduce.py --rehearsal): the full 191,027-row
+# train set, a 16,027-row val split, 2,048 test rows; bs 6144, eval bs 1024
+TRAIN_ROWS, VAL_ROWS, TEST_ROWS = 191_027, 16_027, 2_048
+EVAL_BS = 1024
+TRAIN_FLAGS = ["--batch-size", "6144", "--lr", "1e-4", "--epochs", "10", "--plot-figures", "off"]
+K1_EVAL_ATOL = 1e-6
+CPU_LOSS_ATOL = 1e-5  # CUDA run vs the same run on the CPU: train/Loss, val/Loss
+CPU_AUROC_ATOL = 1e-3  # val/test AUROC-macro
+# myCL reset counts per step, as a share of the weights compared: held for
+# every step of one step from the same state on the card and on the CPU,
+# and for 99% of the steps of two whole runs (their trajectories drift
+# apart by fp32 noise, and a weight near the reset cutoff flips: the knife
+# edge of PARITY.md:172-185; the largest share is reported)
+RESET_SHARE = 0.005
+LOOPS = ("build_fused_epoch", "build_fused_unit", "build_fused_run", "build_fused_eval")
+
+
+def training_data(directory: Path, seed: int = 27) -> Path:
+    """Synthetic cached embeddings at the reference's scale (noisy sums of
+    per-class directions, as the JAX package's rehearsal makes them), as the
+    drivers' ``--data-dir`` reads them."""
+    import numpy as np
+
+    from incremental_multimodal_medical_learning_ii_torch.data.store import synthetic_dataset
+
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(5, 128)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    for split, n, s in (("train", TRAIN_ROWS, 1), ("val", VAL_ROWS, 2), ("test", TEST_ROWS, 3)):
+        synthetic_dataset(n, seed=s, class_directions=dirs).save(directory / f"{split}.npz")
+    return directory
+
+
+def eval_kernel_checks(bank, results):
+    """K1 at the eval passes' shapes: 1024 rows against the MEAN/SINGLE bank
+    (10 rows: 5 classes x pos/neg means) and against one polarity of the MAX
+    bank (5 x P_max rows), against its plain version; times as in phase 7."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import PromptBank
+    from incremental_multimodal_medical_learning_ii_torch.ops.cosine import (
+        l2_normalize,
+        masked_mean,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        fused_pairwise_cosine,
+        pairwise_cosine,
+    )
+
+    bank = PromptBank(*(t.cuda() for t in bank))
+    c, p, d = bank.pos.shape
+    g = torch.Generator(device="cuda").manual_seed(5)
+    banks = {f"eval {EVAL_BS}x{2 * c}": torch.cat([masked_mean(bank.pos, bank.pos_count),
+                                                   masked_mean(bank.neg, bank.neg_count)]),
+             f"eval {EVAL_BS}x{c * p}": bank.pos.reshape(c * p, d)}
+    out = {}
+    for name, t in banks.items():
+        x = torch.randn(EVAL_BS, d, device="cuda", generator=g)
+        got, ref = fused_pairwise_cosine(x, t), pairwise_cosine(x, t)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(err <= K1_EVAL_ATOL, f"K1 {name}: off by {err}")
+        xn, tn = l2_normalize(x), l2_normalize(t)
+        bound, by = cosine_bound_ms(EVAL_BS, t.shape[0])
+        med = alternating_ms({"ms": lambda: fused_pairwise_cosine(x, t),
+                              "library_ms": lambda: torch.matmul(xn, tn.T)}, iters=200)
+        out[name] = dict(
+            max_abs_err=err, **med, plain_ms=cuda_time_ms(lambda: pairwise_cosine(x, t), 200),
+            bound_ms=bound, bound_by=by,
+            kernel_device_ms=profiled_device_ms(lambda: fused_pairwise_cosine(x, t),
+                                                fused_pairwise_cosine, "fused_cosine_kernel",
+                                                med["ms"], bound))
+        log(f"  K1 {name}: {json.dumps(out[name])}")
+    results["cosine_eval"] = out
+    return list(banks)
+
+
+def guarded_loops(calls: dict, host_s: dict):
+    """Wrap the trainer's fused loops so each call runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: between the upload of its
+    operands and the readback of its outputs, any call that synchronises
+    with the card raises.  ``calls`` counts the guarded calls of each loop,
+    ``host_s`` sums the host's time inside them (the time to queue the
+    work: nothing in them waits for the card).  Returns the undo function."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.engine import trainer as tmod
+
+    originals = {n: getattr(tmod, n) for n in LOOPS}
+
+    def wrap(name, build):
+        def builder(*a, **k):
+            fn = build(*a, **k)
+
+            def guarded(*args, **kw):
+                if not args[1].is_cuda:  # every loop's second operand is its data
+                    return fn(*args, **kw)
+                calls[name] = calls.get(name, 0) + 1
+                torch.cuda.set_sync_debug_mode("error")
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t0
+                    torch.cuda.set_sync_debug_mode("default")
+            return guarded
+        return builder
+
+    for n in LOOPS:
+        setattr(tmod, n, wrap(n, originals[n]))
+    return lambda: [setattr(tmod, n, f) for n, f in originals.items()]
+
+
+def event_streams(log_dir: Path) -> dict:
+    from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import read_scalars
+
+    files = sorted(log_dir.glob("**/events.out.tfevents.*"))
+    check(len(files) == 1, f"expected one event file under {log_dir}, found {len(files)}")
+    streams = {}
+    for tag, step, value in read_scalars(files[0]):
+        streams.setdefault(tag, []).append((step, value))
+    return streams
+
+
+def run_driver(cli: str, flags, data_dir: Path, log_dir: Path, device: str,
+               host_s: dict) -> dict:
+    """One driver through its CLI's ``main`` (its printout discarded); the
+    K1 launches, the per-step myCL reset counts, the wall time around it
+    and the host's time inside its guarded loops."""
+    import contextlib
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
+        fused_bottleneck_layer,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        fused_pairwise_cosine,
+    )
+
+    main = importlib.import_module(f"{PACKAGE}.cli.{cli}").main
+    resets = []
+    flush = Trainer._flush_epoch_metrics
+
+    def record(self, fetched, *a, **k):
+        if "n_reset" in fetched:
+            resets.append(np.asarray(fetched["n_reset"], np.int64))
+        return flush(self, fetched, *a, **k)
+
+    Trainer._flush_epoch_metrics = record
+    counters = (fused_pairwise_cosine, fused_bottleneck_layer, flash_attention)
+    try:
+        for fn in counters:
+            fn.launches = 0
+        host_s.clear()
+        printout = io.StringIO()  # the drivers print every eval's metrics
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printout):
+            res = main(["--data-dir", str(data_dir), "--log-dir", str(log_dir), "--device", device,
+                        *TRAIN_FLAGS, *flags])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+    finally:
+        Trainer._flush_epoch_metrics = flush
+    steps = int(res["trainer"].state.step)
+    return dict(wall_s=wall, steps=steps, steps_per_s=steps / wall, launches=launches,
+                loop_host_s=dict(host_s),
+                resets=np.concatenate(resets) if resets else np.zeros(0, np.int64),
+                streams=event_streams(log_dir),
+                params={k: v.detach().cpu() for k, v in res["trainer"].state.params.items()})
+
+
+def compare_runs(a: dict, b: dict, n_weights: int) -> dict:
+    """Two runs of one configuration: max |diff| of the loss streams, of
+    the AUROC-macro scalars, and of the per-step myCL reset counts."""
+    import numpy as np
+
+    check(sorted(a["streams"]) == sorted(b["streams"]), "the runs logged different tags")
+    out = {}
+    for tag in ("train/Loss", "val/Loss", "val/AUROC-macro", "test/AUROC-macro"):
+        sa, sb = a["streams"][tag], b["streams"][tag]
+        check([s for s, _ in sa] == [s for s, _ in sb], f"{tag}: the runs logged different steps")
+        out[tag] = float(np.max(np.abs(np.array([v for _, v in sa]) - np.array([v for _, v in sb]))))
+    check(a["resets"].shape == b["resets"].shape, "the runs reset on different steps")
+    diff = np.abs(a["resets"] - b["resets"])
+    out["reset_count_max_diff"] = int(diff.max()) if diff.size else 0
+    out["reset_count_max_share"] = out["reset_count_max_diff"] / n_weights
+    if diff.size:  # how the disagreement spreads over the run's steps
+        share = diff / n_weights
+        q = len(share) // 4
+        out["reset_share_quantiles"] = {k: float(np.quantile(share, v)) for k, v in
+                                        (("p50", 0.5), ("p90", 0.9), ("p99", 0.99))}
+        out["reset_steps_over_bar"] = int((share > RESET_SHARE).sum())
+        out["reset_steps"] = int(len(share))
+        out["reset_argmax_step"] = int(diff.argmax())
+        out["reset_mean_share_first_last_quarter"] = [float(share[:q].mean()), float(share[-q:].mean())]
+        out["resets_per_step_mean"] = float(a["resets"].mean())
+    out["params_max_abs"] = max(float((a["params"][k] - b["params"][k]).abs().max())
+                                for k in a["params"])
+    return out
+
+
+def reset_agreement(bank, data_dir: Path, n_weights: int, steps: int = 20) -> dict:
+    """myCL's reset mask on the card against the CPU's, one step at a time
+    from the same state and batch (the CPU step starts from a copy of the
+    card's state before every step), at thresholds across the data-inc
+    schedule (0.011 ... 0.21): the disagreement one step's fp32 noise
+    makes, without the drift of two whole runs apart."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.data.store import EmbeddingDataset
+    from incremental_multimodal_medical_learning_ii_torch.engine.steps import TrainState
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
+
+    cfg = ExperimentConfig(continual_learning="myCL", plot_figures="off")
+    card = Trainer(cfg, bank, device="cuda")
+    train = EmbeddingDataset.load(data_dir / "train.npz")
+    bs, state = cfg.batch_size, card.state
+    ones = torch.ones(5)
+    diffs = []
+    for i in range(steps):
+        rows = slice(i * bs, (i + 1) * bs)
+        embs = torch.from_numpy(train.embeddings[rows])
+        labels = torch.from_numpy(train.labels[rows])
+        thr = torch.tensor(0.011 + 0.2 * i / (steps - 1))
+        host = TrainState(*({k: v.cpu() for k, v in f.items()} if isinstance(f, dict) else f.cpu()
+                            for f in state))
+        state, m_card = card._train_step(state, embs.cuda(), labels.cuda(), torch.ones(bs).cuda(),
+                                         ones.cuda(), card.bank, thr.cuda())
+        _, m_host = card._train_step(host, embs, labels, torch.ones(bs), ones,
+                                     card.bank.to("cpu"), thr)
+        diffs.append(abs(int(m_card["n_reset"]) - int(m_host["n_reset"])))
+    share = np.array(diffs) / n_weights
+    return dict(steps=steps, max_diff=int(max(diffs)), max_share=float(share.max()),
+                mean_share=float(share.mean()), diffs=diffs)
+
+
+def profile_training(bank, results):
+    """Where a training epoch's time goes: one fused epoch of the joint run
+    (32 steps of 6144 rows) and one val pass (16 batches of 1024, K1) under
+    the profiler: wall, device busy share, top kernels."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
+    from incremental_multimodal_medical_learning_ii_torch.utils.device import upload
+
+    trainer = Trainer(ExperimentConfig(plot_figures="off"), bank, device="cuda")
+    rng = np.random.default_rng(0)
+    n = 32 * 6144
+    embs = upload(rng.normal(size=(n, 128)).astype(np.float32), trainer.device)
+    labels = upload((rng.random((n, 5)) < 0.3).astype(np.float32), trainer.device)
+    valid = torch.ones(n, device="cuda")
+    val = (embs[:16 * EVAL_BS], labels[:16 * EVAL_BS], valid[:16 * EVAL_BS])
+    perm = upload(np.random.default_rng(1).permutation(n), trainer.device)
+    mask, thr = torch.ones(5, device="cuda"), torch.zeros((), device="cuda")
+
+    def epoch_and_eval():
+        trainer.state, stacked = trainer._fused_epoch(trainer.state, embs, labels, valid,
+                                                      trainer.bank, mask, thr, perm)
+        return stacked, trainer._fused_eval(trainer.state.params, *val, trainer.bank)
+
+    profile_window("one train epoch (32 x 6144) + one val pass (16 x 1024)", epoch_and_eval,
+                   results)
+
+
+def training(bank, results):
+    """The paper's experiment through the three drivers' CLIs at the
+    reference's scale, on the card, with K1 scoring every eval pass (joint
+    and data-incremental also with ``--fused-unit``), then the same runs on
+    the card machine's CPU, held against the card's."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    c, p, _ = bank.pos.shape
+    eval_batches = math.ceil(VAL_ROWS / EVAL_BS) + math.ceil(TEST_ROWS / EVAL_BS)
+    runs = {  # name: (cli, flags, units evaluated, K1 launches per eval batch)
+        "joint": ("zero_joint_bounds", [], 10, 1),
+        "joint --fused-unit": ("zero_joint_bounds", ["--fused-unit"], 10, 1),
+        "data-inc": ("data_incremental", ["--parts", "20", "--continual-learning", "myCL"], 20, 1),
+        "data-inc --fused-unit": ("data_incremental", ["--parts", "20", "--continual-learning",
+                                                       "myCL", "--fused-unit"], 20, 1),
+        "class-pos-neg MORE_LABELS MAX": ("class_incremental", ["--max-emb"], 5, 2),
+    }
+    out = {"runs": {}, "cpu": {}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    calls: dict = {}
+    host_s: dict = {}
+    undo = guarded_loops(calls, host_s)
+    try:
+        t0 = time.perf_counter()
+        data_dir = training_data(tmp / "data")
+        out["data_s"] = time.perf_counter() - t0
+        # positive control: the guard does catch a synchronising call
+        x = torch.ones(4, device="cuda")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            caught = raises(lambda: x.sum().item(), RuntimeError)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(caught, "sync debug mode did not catch .item()")
+        cuda_runs = {}
+        order = ["joint", "joint --fused-unit", "data-inc", "data-inc --fused-unit",
+                 "class-pos-neg MORE_LABELS MAX",
+                 "data-inc --fused-unit", "data-inc"]  # the two data-inc paths in turns
+        for i, name in enumerate(order):
+            cli, flags, units, per_batch = runs[name]
+            r = run_driver(cli, flags, data_dir, tmp / f"cuda{i}", "cuda", host_s)
+            expected = units * eval_batches * per_batch
+            check(r["launches"]["fused_pairwise_cosine"] == expected,
+                  f"{name}: K1 launched {r['launches']['fused_pairwise_cosine']} times, "
+                  f"the eval passes imply {expected}")
+            check(r["launches"]["fused_bottleneck_layer"] == 0 and r["launches"]["flash_attention"] == 0,
+                  f"{name}: a kernel off the training path was launched")
+            final = r["streams"]["test/AUROC-macro"][-1][1]
+            check(0.0 <= final <= 1.0, f"{name}: final test AUROC-macro {final}")
+            check(name != "joint" or final > 0.5, f"joint training did not learn: AUROC {final}")
+            key = name if name not in cuda_runs else name + " (2nd)"
+            cuda_runs[key] = r
+            out["runs"][key] = dict(wall_s=r["wall_s"], steps=r["steps"], steps_per_s=r["steps_per_s"],
+                                    loop_host_s=r["loop_host_s"],
+                                    launches=r["launches"], expected_k1_launches=expected,
+                                    final_test_auroc_macro=final,
+                                    final_val_auroc_macro=r["streams"]["val/AUROC-macro"][-1][1])
+            log(f"  {key}: {r['steps']} steps in {r['wall_s']:.2f} s ({r['steps_per_s']:.1f} steps/s), "
+                f"host time inside the guarded loops {json.dumps(r['loop_host_s'])}, "
+                f"K1 launches {r['launches']['fused_pairwise_cosine']} (= {expected}), "
+                f"final test AUROC-macro {final:.4f}")
+        check(all(calls.get(n, 0) > 0 for n in LOOPS), f"a fused loop ran unguarded: {calls}")
+        out["guarded_loop_calls"] = dict(calls)
+        n_weights = sum(v.numel() for v in cuda_runs["data-inc"]["params"].values())
+        for name in ("joint", "data-inc"):
+            same = compare_runs(cuda_runs[name], cuda_runs[name + " --fused-unit"], n_weights)
+            log(f"  {name} per epoch/unit vs --fused-unit on the card: {json.dumps(same)}")
+            check(same["train/Loss"] <= CPU_LOSS_ATOL and same["val/Loss"] <= CPU_LOSS_ATOL,
+                  f"{name}: --fused-unit changed the loss streams: {same}")
+            out[f"fused_vs_unfused {name}"] = same
+        for name in ("data-inc", "joint", "class-pos-neg MORE_LABELS MAX"):
+            cli, flags, _, _ = runs[name]
+            r = run_driver(cli, flags, data_dir, tmp / f"cpu-{name.split()[0]}", "cpu", host_s)
+            diff = compare_runs(cuda_runs[name], r, n_weights)
+            out["cpu"][name] = dict(wall_s=r["wall_s"], steps_per_s=r["steps_per_s"],
+                                    cuda_wall_s=cuda_runs[name]["wall_s"], **diff)
+            log(f"  {name} on the CPU: {r['wall_s']:.2f} s ({r['steps_per_s']:.2f} steps/s) against "
+                f"{cuda_runs[name]['wall_s']:.2f} s on the card; CUDA vs CPU {json.dumps(diff)}")
+            check(diff["train/Loss"] <= CPU_LOSS_ATOL and diff["val/Loss"] <= CPU_LOSS_ATOL,
+                  f"{name}: CUDA and CPU loss streams differ: {diff}")
+            check(diff["val/AUROC-macro"] <= CPU_AUROC_ATOL and diff["test/AUROC-macro"] <= CPU_AUROC_ATOL,
+                  f"{name}: CUDA and CPU AUROC differ: {diff}")
+        out["reset_agreement_one_step"] = reset_agreement(bank, data_dir, n_weights)
+        log(f"  myCL reset counts, card vs CPU, one step from the same state: "
+            f"{json.dumps(out['reset_agreement_one_step'])}")
+        one = out["reset_agreement_one_step"]
+        check(one["max_share"] <= RESET_SHARE,
+              f"one step from the same state: myCL reset counts differ by {one['max_diff']}")
+        for name, diff in out["cpu"].items():  # after every run, so all were measured
+            check(diff.get("reset_share_quantiles", {}).get("p99", 0.0) <= RESET_SHARE,
+                  f"{name}: myCL reset counts differ by more than {RESET_SHARE:.1%} of the "
+                  f"weights on more than 1% of the steps: {diff}")
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+        out_dir = REPO / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_training.json").write_text(json.dumps(out, indent=1))
+    profile_training(bank, results)
+    out["k1_launches"] = {
+        f"eval {EVAL_BS}x{2 * c}": sum(r["launches"]["fused_pairwise_cosine"]
+                                       for n, r in cuda_runs.items() if "MAX" not in n),
+        f"eval {EVAL_BS}x{c * p}": sum(r["launches"]["fused_pairwise_cosine"]
+                                       for n, r in cuda_runs.items() if "MAX" in n),
+    }
+    results["training"] = out
+    return out
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1189,6 +1597,10 @@ def main(argv=None) -> int:
     text_times(bert, ids, mask, results)
     if args.profile:
         profile_text(bert, ids, mask, results)
+    log("[12] the paper's experiment at the reference's scale: K1 at the eval shapes, then the "
+        "three drivers on the card (loops under sync debug mode) and on the CPU")
+    eval_names = eval_kernel_checks(bank, results)
+    train = training(bank, results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]
@@ -1217,6 +1629,14 @@ def main(argv=None) -> int:
              kernel_device_ms=k3["kernel_device_ms"],
              skipped_tile_share=k3["skipped_tile_share"], tflops_needed=k3["tflops_needed"]),
     ]
+    for name in eval_names:  # K1 at the eval passes' shapes, launched by the training runs
+        k = results["cosine_eval"][name]
+        kernels.append(dict(
+            name=f"fused_cosine ({name})", route="cuda", source=f"{PACKAGE}/csrc/fused_cosine.cu",
+            replaces="incremental_multimodal_medical_learning_ii_tpu/ops/pallas_cosine.py:32",
+            launches=train["k1_launches"][name], max_abs_err=k["max_abs_err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=k["library_ms"], kernel_device_ms=k["kernel_device_ms"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

@@ -13,7 +13,13 @@ ResNet-50 -> adapters -> prompt-cosine scores (``inference.py``,
 ``cli/classify.py``, ``cli/serve.py``) — and the CXR-BERT text tower
 (``models/cxr_bert.py`` with the flash-attention kernel,
 ``text/tokenizer.py``, ``text/engine.py``, ``models/convert.py`` for the
-reference's weight files).  Entry points run on CUDA unless the caller
+reference's weight files), and the paper's experiment over cached
+embeddings: the train step, optimisers and myCL/profCL
+(``engine/steps.py``, ``engine/cl.py``), metrics without scikit-learn
+(``evaluation/metrics.py``), an event writer without tensorboard
+(``evaluation/tb.py``), the trainer, protocols, checkpoints and the three
+drivers (``cli/zero_joint_bounds.py``, ``cli/data_incremental.py``,
+``cli/class_incremental.py``).  Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 """
 

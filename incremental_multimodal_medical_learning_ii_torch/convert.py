@@ -14,6 +14,10 @@ with numpy (or array-like) leaves, and returns the port's counterpart:
   at the ``dims`` given (LayerNorm ``scale`` -> ``weight``; the head count
   is not in the shapes, so ``dims`` is required).
 
+``train_state_from_jax`` carries a JAX ``TrainState`` (adapter params,
+optax Adam moments, counts, learning rate, step) across, so a JAX
+checkpoint resumes in the port.
+
 ``load_biovil_npz`` reads a ``.npz`` bundle written by the JAX package's
 ``cli/convert_weights.py`` (``utils/serialization.py`` layout) with this
 package's own reader.
@@ -179,3 +183,52 @@ def load_biovil_npz(path: str) -> BioViLImageModel:
 
     tree, _ = load_params_npz(path)
     return params_from_jax(tree)
+
+
+def adapter_params_from_jax(tree: Mapping[str, Any], device="cpu"):
+    """An adapter tree (params, or an optimiser moment of the same layout)
+    -> the port's parameter dict, ``kernel`` (in, out) -> ``weight`` (out, in)."""
+    from incremental_multimodal_medical_learning_ii_torch.engine.steps import params_from_modules
+
+    return params_from_modules(params_from_jax(tree), device) if tree else {}
+
+
+def _opt_nodes(state):
+    """Every namedtuple node of an optax state, depth first."""
+    if hasattr(state, "_fields"):
+        yield state
+        for v in state:
+            yield from _opt_nodes(v)
+    elif isinstance(state, (tuple, list)):
+        for v in state:
+            yield from _opt_nodes(v)
+
+
+def train_state_from_jax(state, lr: Optional[float] = None, device="cpu"):
+    """A JAX ``TrainState`` (params, optax state, step; numpy leaves, e.g.
+    ``jax.device_get`` of a checkpoint) -> the port's ``TrainState``.
+
+    Adam's ``mu``/``nu`` come from the ``ScaleByAdamState`` and are
+    transposed like the weights; ``count`` from it (else from the schedule's
+    or ``inject_hyperparams``' counter); ``lr`` from ``inject_hyperparams``'
+    ``learning_rate`` (a scheduled optimiser keeps no rate in its state:
+    pass ``lr``)."""
+    from incremental_multimodal_medical_learning_ii_torch.engine.steps import TrainState
+
+    nodes = list(_opt_nodes(state.opt_state))
+    adam = next((n for n in nodes if {"mu", "nu"} <= set(n._fields)), None)
+    counted = [n for n in nodes if "count" in n._fields]
+    hyper = next((n for n in nodes if "hyperparams" in n._fields), None)
+    if hyper is not None and "learning_rate" in hyper.hyperparams:
+        lr = float(np.asarray(hyper.hyperparams["learning_rate"]))
+    if lr is None:
+        raise ValueError("the optimiser state holds no learning rate: pass lr=")
+    count = adam.count if adam is not None else counted[-1].count
+    return TrainState(
+        params=adapter_params_from_jax(state.params, device),
+        mu=adapter_params_from_jax(adam.mu, device) if adam is not None else {},
+        nu=adapter_params_from_jax(adam.nu, device) if adam is not None else {},
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device),
+        lr=torch.tensor(lr, dtype=torch.float32, device=device),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
+    )

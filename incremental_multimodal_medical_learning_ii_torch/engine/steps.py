@@ -1,0 +1,464 @@
+"""Train and eval steps over device-resident cached embeddings
+(counterpart of the JAX package's ``engine/steps.py``).
+
+One train step is the reference's per-batch work (``Trainer.py:537-601``):
+image adapter, text adapter over the cached prompt bank, cosine scores of
+all classes, masked BCE, ``torch.autograd.grad``, the optimiser update,
+optionally the myCL reset, and the monitor metrics.  Class subsets and
+ragged final batches are masks over static shapes, as in the JAX package.
+
+Parameters are a dict of tensors (``"image.dense1.weight"``, ... as the
+adapters' ``nn.ModuleDict`` names them) and the state a
+:class:`TrainState` of tensors; every function here returns new tensors
+and never writes into its inputs, so a state that was handed out stays
+valid.  The optimiser follows optax's order of operations (``adam`` under
+``inject_hyperparams``, ``sgd``, ``exponential_decay``), with the learning
+rate a tensor in the state.
+
+The fused functions (:func:`build_fused_epoch`, :func:`build_fused_unit`,
+:func:`build_fused_run`, :func:`build_fused_eval`) are Python loops over
+epochs and batches on tensors already on the device.  Their metrics stay
+on the device and come back stacked in the JAX functions' shapes; nothing
+in them reads a value back to the host, so on CUDA the host queues the
+whole epoch, unit or run ahead of the card and the caller reads back once.
+
+Train steps score through ``ops/cosine.py`` (gradients flow there); eval
+passes run under ``torch.no_grad()`` and score through
+``score_embeddings(use_kernel=True)``: on CUDA tensors that is the fused
+cosine kernel (one launch a batch in MEAN/SINGLE, two in MAX), on CPU
+tensors its plain version.  The device decides, as ``_eval_uses_pallas``
+does in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from incremental_multimodal_medical_learning_ii_torch.engine.cl import weight_reset
+from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair
+from incremental_multimodal_medical_learning_ii_torch.objectives.losses import (
+    bce_with_logits,
+    change_labels,
+)
+from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import (
+    PromptBank,
+    apply_text_adapter_to_bank,
+    score_embeddings,
+)
+from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+    ContinualLearning,
+    ExperimentConfig,
+    Optim,
+)
+
+Params = Dict[str, torch.Tensor]
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # torch / optax defaults (Trainer.py:172-186)
+
+
+class TrainState(NamedTuple):
+    params: Params
+    mu: Params  # Adam's first moments ({} for SGD)
+    nu: Params  # Adam's second moments ({} for SGD)
+    count: torch.Tensor  # int32 (): updates made (optax's count)
+    lr: torch.Tensor  # float32 (): the base learning rate
+    step: torch.Tensor  # int32 ()
+
+
+# ----------------------------------------------------------------------
+# Parameters and the functional adapters
+# ----------------------------------------------------------------------
+def params_from_modules(modules: nn.ModuleDict, device) -> Params:
+    """The adapters' weights as a dict of float32 tensors on ``device``."""
+    return {k: v.detach().to(device=device, dtype=torch.float32).clone()
+            for k, v in modules.state_dict().items()}
+
+
+def _adapter(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """MLPAdapter / LinearAdapter forward with the weights from ``params``."""
+    h = F.linear(x, params[f"{name}.dense1.weight"], params[f"{name}.dense1.bias"])
+    w2 = params.get(f"{name}.dense2.weight")
+    if w2 is None:
+        return h
+    return F.linear(torch.relu(h), w2, params[f"{name}.dense2.bias"])
+
+
+def apply_image(pair: AdapterPair, params: Params, x: torch.Tensor) -> torch.Tensor:
+    return _adapter(params, "shared" if pair.shared else "image", x) if pair.use_image else x
+
+
+def apply_text(pair: AdapterPair, params: Params, x: torch.Tensor) -> torch.Tensor:
+    return _adapter(params, "shared" if pair.shared else "text", x) if pair.use_text else x
+
+
+def adapt_bank(pair: AdapterPair, params: Params, bank: PromptBank) -> PromptBank:
+    if not pair.use_text:
+        return bank
+    return apply_text_adapter_to_bank(lambda p, x: apply_text(pair, p, x), params, bank)
+
+
+# ----------------------------------------------------------------------
+# Optimiser (optax's order of operations)
+# ----------------------------------------------------------------------
+def init_train_state(params: Params, cfg: ExperimentConfig, device) -> TrainState:
+    if cfg.lr_schedule not in (None, "exponential"):
+        raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
+    moments = cfg.optim == Optim.ADAM
+    zeros = (lambda: {k: torch.zeros_like(v) for k, v in params.items()}) if moments else dict
+    return TrainState(
+        params=params, mu=zeros(), nu=zeros(),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+        lr=torch.full((), cfg.lr, dtype=torch.float32, device=device),
+        step=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def learning_rate(cfg: ExperimentConfig, lr: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The rate of the next update: ``lr``, or ``lr * gamma^count`` for the
+    per-step exponential schedule (``count`` updates already made)."""
+    if cfg.lr_schedule is None:
+        return lr
+    return lr * cfg.lr_gamma ** count
+
+
+def lr_at_host(cfg: ExperimentConfig, count: int) -> float:
+    """The scheduled rate after ``count`` updates, on the host (the
+    ``train/LR`` scalar; float32 as optax computes it)."""
+    if cfg.lr_schedule is None:
+        return float(np.float32(cfg.lr))
+    return float(np.float32(cfg.lr) * np.power(np.float32(cfg.lr_gamma), np.float32(count)))
+
+
+def optimizer_update(cfg: ExperimentConfig, state: TrainState, grads: Params):
+    """(params, mu, nu, count) after one Adam / SGD update."""
+    neg_lr = -learning_rate(cfg, state.lr, state.count)
+    count = state.count + 1
+    if cfg.optim == Optim.SGD:
+        return ({k: p + neg_lr * grads[k] for k, p in state.params.items()},
+                state.mu, state.nu, count)
+    bc1, bc2 = 1 - ADAM_B1 ** count, 1 - ADAM_B2 ** count
+    params, mu, nu = {}, {}, {}
+    for k, p in state.params.items():
+        g = grads[k]
+        mu[k] = (1 - ADAM_B1) * g + ADAM_B1 * state.mu[k]
+        nu[k] = (1 - ADAM_B2) * (g ** 2) + ADAM_B2 * state.nu[k]
+        params[k] = p + neg_lr * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS))
+    return params, mu, nu, count
+
+
+def _select(keep: torch.Tensor, new, old):
+    """``torch.where(keep, new, old)`` over every tensor of a state."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(keep, new, old)
+    if isinstance(new, dict):
+        return {k: _select(keep, v, old[k]) for k, v in new.items()}
+    return type(new)(*(_select(keep, a, b) for a, b in zip(new, old)))
+
+
+# ----------------------------------------------------------------------
+# The train step
+# ----------------------------------------------------------------------
+def _forward(pair, params, embs, bank, cfg, use_kernel: bool = False):
+    return score_embeddings(
+        apply_image(pair, params, embs), adapt_bank(pair, params, bank), cfg.prompt_mode,
+        cfg.train_logit_diff, cfg.pred_logit_diff, use_kernel=use_kernel,
+    )
+
+
+def _train_core(pair: AdapterPair, cfg: ExperimentConfig, guard_empty: bool = False) -> Callable:
+    """``core(state, embs, labels, elem_mask, class_mask, bank, threshold)
+    -> (state, metrics)``: forward, masked BCE, backward, update, optional
+    myCL reset, monitor metrics (device tensors).
+
+    ``guard_empty`` makes a fully masked batch an exact no-op on the whole
+    state (params, moments, count, step): a zero-grad Adam step is not one
+    (its moments decay and stale momentum moves the weights).  The select
+    is ``torch.where`` on a device predicate, so no value is read back; for
+    a real batch it is the identity, bit for bit."""
+    use_cl = cfg.continual_learning == ContinualLearning.MY_CL
+    applications = 2 if cfg.shared else 1  # SHARED: the reference resets its aliased module twice
+
+    def core(state: TrainState, embs, labels, elem_mask, class_mask, bank, threshold):
+        names = list(state.params)
+        leaves = [state.params[k].detach().requires_grad_(True) for k in names]
+        with torch.enable_grad():
+            out = _forward(pair, dict(zip(names, leaves)), embs, bank, cfg)
+            lbl = change_labels(labels) if cfg.change_labels else labels
+            loss = bce_with_logits(out.logits, lbl, elem_mask[:, None] * class_mask[None, :])
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with torch.no_grad():
+            grads = {k: torch.zeros_like(p) if g is None else g for k, p, g in zip(names, leaves, grads)}
+            params, mu, nu, count = optimizer_update(cfg, state, grads)
+            metrics: Dict[str, torch.Tensor] = {"loss": loss.detach()}
+            if use_cl:
+                params, n_reset, n_updated = weight_reset(
+                    params, state.params, threshold, applications=applications)
+                metrics["n_reset"] = n_reset
+                metrics["n_updated"] = n_updated
+            if out.max_mean_gap is not None:
+                # averaged over the real rows; either the (C,) per-class gaps
+                # or their mean over the trained classes
+                gaps = out.max_mean_gap.detach()
+                denom_c = torch.clamp(torch.sum(class_mask), min=1.0)
+                denom_r = torch.clamp(torch.sum(elem_mask), min=1.0)
+                row_w = elem_mask[:, None]
+                gap_pos = torch.sum(gaps[0] * row_w, dim=0) / denom_r
+                gap_neg = torch.sum(gaps[1] * row_w, dim=0) / denom_r
+                if cfg.max_gap_per_class:
+                    metrics["max_mean_gap_pos_vec"] = gap_pos
+                    metrics["max_mean_gap_neg_vec"] = gap_neg
+                else:
+                    metrics["max_mean_gap_pos"] = torch.sum(gap_pos * class_mask) / denom_c
+                    metrics["max_mean_gap_neg"] = torch.sum(gap_neg * class_mask) / denom_c
+            out_state = TrainState(params, mu, nu, count, state.lr, state.step + 1)
+            if guard_empty:
+                out_state = _select(torch.sum(elem_mask) > 0, out_state, state)
+        return out_state, metrics
+
+    return core
+
+
+def build_train_step(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+    """step(state, embs, labels, elem_mask, class_mask, bank, threshold)
+    -> (state, metrics dict)."""
+    return _train_core(pair, cfg)
+
+
+def _stack(items: Sequence):
+    """Stack a list of equally shaped dicts / tuples / states of tensors
+    along a new leading axis (no items: an epoch of no batches, whose
+    metrics are an empty loss stream)."""
+    if not items:
+        return {"loss": torch.zeros(0)}
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(items))
+    if isinstance(first, dict):
+        return {k: _stack([it[k] for it in items]) for k in first}
+    if hasattr(first, "_fields"):
+        return type(first)(*(_stack([it[i] for it in items]) for i in range(len(first))))
+    return tuple(_stack([it[i] for it in items]) for i in range(len(first)))
+
+
+def unstack(tree, index: int):
+    """Slice ``index`` off the leading axis of every tensor (a stacked
+    TrainState or eval output), as ``tree_map(lambda x: x[index])``."""
+    if isinstance(tree, torch.Tensor):
+        return tree[index]
+    if isinstance(tree, dict):
+        return {k: unstack(v, index) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(unstack(v, index) for v in tree))
+    return tuple(unstack(v, index) for v in tree)
+
+
+def _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, threshold, perm):
+    """One epoch over ``(n_pad / B)`` batch slabs; the shuffled order is one
+    gather of the whole epoch first (``perm`` has the padding rows at its
+    tail), then contiguous slabs.  Returns (state, stacked metrics)."""
+    b = cfg.batch_size
+    if cfg.shuffle_train:
+        embs, labels, valid = (t.index_select(0, perm) for t in (embs, labels, valid))
+    embs = embs.reshape(-1, b, embs.shape[-1])
+    labels = labels.reshape(-1, b, labels.shape[-1])
+    valid = valid.reshape(-1, b)
+    per_batch = []
+    for i in range(embs.shape[0]):
+        state, metrics = core(state, embs[i], labels[i], valid[i], class_mask, bank, threshold)
+        per_batch.append(metrics)
+    return state, _stack(per_batch)
+
+
+def build_fused_epoch(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+    """A whole training epoch over device-resident data:
+    ``epoch(state, embs, labels, valid, bank, class_mask, threshold, perm)
+    -> (state, stacked metrics)``, the data padded to whole batches and
+    ``perm`` the epoch's (N_pad,) row order (ignored, and may be empty,
+    with ``shuffle_train=False``)."""
+    core = _train_core(pair, cfg)
+
+    def epoch(state, embs, labels, valid, bank, class_mask, threshold, perm):
+        return _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, threshold, perm)
+
+    return epoch
+
+
+def _prof_reset(cfg, state, snapshot, threshold, stacked):
+    params, n_reset, n_updated = weight_reset(
+        state.params, snapshot, threshold, applications=2 if cfg.shared else 1)
+    return state._replace(params=params), dict(stacked, prof_n_reset=n_reset,
+                                               prof_n_updated=n_updated)
+
+
+def build_fused_unit(
+    pair: AdapterPair,
+    cfg: ExperimentConfig,
+    use_prof: bool = False,
+    eval_mode: Optional[str] = None,
+) -> Callable:
+    """A whole incremental unit (all E epochs of a data-inc part or a
+    class-inc task) as one call: ``unit(state, embs, labels, valid, bank,
+    class_mask, thresholds (E,), perms (E, n_pad) or (E, 0), *eval_ops)``.
+
+    The per-epoch myCL thresholds, the per-epoch orders and the profCL
+    snapshot/reset between epochs are operands and steps of the call, as in
+    the JAX ``build_fused_unit``; every metric comes back with a leading
+    (E, n_batches) shape (profCL's counts as ``prof_n_reset`` /
+    ``prof_n_updated``, (E,)).  ``eval_mode`` adds the val/test operands
+    (embs, labels, valid of each, padded to whole eval batches) and folds
+    the eval passes in: ``"final"`` once after the last epoch, returning
+    ``(state, stacked, (val_out, test_out))``; ``"per_epoch"`` after every
+    epoch (the joint driver), returning ``(state, stacked, evals,
+    epoch_states)`` with (E, ...) eval outputs and the post-epoch states
+    stacked the same way."""
+    core = _train_core(pair, cfg)
+    if eval_mode not in (None, "final", "per_epoch"):
+        raise ValueError(f"unknown eval_mode {eval_mode!r}")
+
+    def _eval_both(params, bank, val_ops, test_ops):
+        return (_fused_eval_pass(pair, cfg, params, *val_ops, bank),
+                _fused_eval_pass(pair, cfg, params, *test_ops, bank))
+
+    def unit(state, embs, labels, valid, bank, class_mask, thresholds, perms, *eval_ops):
+        if len(eval_ops) != (6 if eval_mode else 0):
+            raise TypeError(
+                f"eval_mode={eval_mode!r} expects {6 if eval_mode else 0} trailing eval "
+                f"operands (val embs/labels/valid, test embs/labels/valid); got {len(eval_ops)}")
+        val_ops, test_ops = (eval_ops[:3], eval_ops[3:]) if eval_mode else (None, None)
+        per_epoch, evals, states = [], [], []
+        for e in range(thresholds.shape[0]):
+            snapshot = state.params
+            state, stacked = _epoch_scan(core, cfg, state, embs, labels, valid, bank,
+                                         class_mask, thresholds[e], perms[e])
+            if use_prof:
+                state, stacked = _prof_reset(cfg, state, snapshot, thresholds[e], stacked)
+            per_epoch.append(stacked)
+            if eval_mode == "per_epoch":
+                evals.append(_eval_both(state.params, bank, val_ops, test_ops))
+                states.append(state)
+        stacked = _stack(per_epoch)
+        if eval_mode is None:
+            return state, stacked
+        if eval_mode == "final":
+            return state, stacked, _eval_both(state.params, bank, val_ops, test_ops)
+        return state, stacked, _stack(evals), _stack(states)
+
+    return unit
+
+
+def build_fused_run(pair: AdapterPair, cfg: ExperimentConfig, use_prof: bool = False) -> Callable:
+    """A whole incremental run, every unit's epochs and its post-unit
+    val/test eval passes, as one call: ``run(state, embs (U,n_pad,D),
+    labels (U,n_pad,C), valid (U,n_pad), bank, class_masks (U,C),
+    thresholds (U,E), perms (U,E,n_pad) or (U,E,0), val_embs, val_labels,
+    val_valid, test_embs, test_labels, test_valid) -> (state, stacked,
+    (val_out, test_out), unit_states)``: metrics lead with (U, E,
+    n_batches), eval outputs with (U,), ``unit_states`` is a TrainState of
+    (U, ...) tensors.  Units of uneven length are padded to the largest
+    with fully masked batches, which the step guard makes exact no-ops; a
+    unit whose resets are off rides in with zero thresholds."""
+    core = _train_core(pair, cfg, guard_empty=True)
+
+    def run(state, embs, labels, valid, bank, class_masks, thresholds, perms,
+            val_embs, val_labels, val_valid, test_embs, test_labels, test_valid):
+        unit_stacked, unit_evals, unit_states = [], [], []
+        for u in range(embs.shape[0]):
+            per_epoch = []
+            for e in range(thresholds.shape[1]):
+                snapshot = state.params
+                state, stacked = _epoch_scan(core, cfg, state, embs[u], labels[u], valid[u],
+                                             bank, class_masks[u], thresholds[u, e], perms[u, e])
+                if use_prof:
+                    state, stacked = _prof_reset(cfg, state, snapshot, thresholds[u, e], stacked)
+                per_epoch.append(stacked)
+            unit_stacked.append(_stack(per_epoch))
+            unit_evals.append((
+                _fused_eval_pass(pair, cfg, state.params, val_embs, val_labels, val_valid, bank),
+                _fused_eval_pass(pair, cfg, state.params, test_embs, test_labels, test_valid, bank),
+            ))
+            unit_states.append(state)
+        return state, _stack(unit_stacked), _stack(unit_evals), _stack(unit_states)
+
+    return run
+
+
+def epoch_permutation(seed: int, counter: int, n_real: int, n_pad: int) -> torch.Tensor:
+    """One epoch's (n_pad,) row order on the host: the ``n_real`` real rows
+    permuted, the padding indices at the tail (the batch composition of the
+    per-batch path and of the reference's reshuffling DataLoader).
+    ``torch.randperm`` from a CPU generator seeded by ``(seed, counter)``,
+    so a CUDA run and a CPU run draw the same orders; it cannot reproduce
+    the JAX package's ``jax.random`` stream (parity tests inject orders
+    through ``Trainer.permutation_source``)."""
+    state = np.random.SeedSequence([seed, counter]).generate_state(2, np.uint32)
+    g = torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+    p = torch.randperm(n_real, generator=g)
+    if n_pad > n_real:
+        p = torch.cat([p, torch.arange(n_real, n_pad)])
+    return p
+
+
+def build_epoch_reset(cfg: ExperimentConfig) -> Callable:
+    """profCL per-epoch reset: (params, snapshot, threshold) -> (params, nr, nu)."""
+    applications = 2 if cfg.shared else 1
+    return lambda params, snapshot, threshold: weight_reset(
+        params, snapshot, threshold, applications=applications)
+
+
+def build_eval_step(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+    """step(params, embs, labels, elem_mask, bank) -> (loss, scores, preds,
+    logits), all five classes scored (the reference evaluates the full
+    label set in every regime, ``Trainer.py:772-866``)."""
+
+    @torch.no_grad()
+    def step(params, embs, labels, elem_mask, bank):
+        out = _forward(pair, params, embs, bank, cfg, use_kernel=True)
+        lbl = change_labels(labels) if cfg.change_labels else labels
+        loss = bce_with_logits(out.logits, lbl, elem_mask[:, None].expand_as(lbl))
+        return loss, out.scores, out.preds, out.logits
+
+    return step
+
+
+def build_fused_eval(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+    """The whole eval pass over device-resident data: (params, embs (Npad,D),
+    labels, valid, bank) -> (losses (n_b,), scores (Npad,C), preds
+    (Npad,C)), in the reference's fixed eval batches (Trainer.py:241-246)."""
+    return lambda params, embs, labels, valid, bank: _fused_eval_pass(
+        pair, cfg, params, embs, labels, valid, bank)
+
+
+@torch.no_grad()
+def _fused_eval_pass(pair, cfg, params, embs, labels, valid, bank):
+    bs = cfg.eval_batch_size
+    if embs.shape[0] % bs:
+        raise ValueError(f"{embs.shape[0]} rows not a multiple of eval batch {bs}; "
+                         "pad the dataset first")
+    # the text-adapted bank is the same for every batch: adapt it once
+    adapted = adapt_bank(pair, params, bank)
+    losses: List[torch.Tensor] = []
+    scores, preds = [], []
+    for start in range(0, embs.shape[0], bs):
+        out = score_embeddings(
+            apply_image(pair, params, embs[start:start + bs]), adapted, cfg.prompt_mode,
+            cfg.train_logit_diff, cfg.pred_logit_diff, use_kernel=True,
+        )
+        lbl = labels[start:start + bs]
+        lbl = change_labels(lbl) if cfg.change_labels else lbl
+        losses.append(bce_with_logits(out.logits, lbl, valid[start:start + bs, None].expand_as(lbl)))
+        scores.append(out.scores)
+        preds.append(out.preds)
+    c = labels.shape[1]
+    if not losses:
+        empty = embs.new_zeros((0, c))
+        return embs.new_zeros(0), empty, empty
+    return torch.stack(losses), torch.cat(scores), torch.cat(preds)
+
+
+def build_embed_fn(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+    """(params, embs) -> adapted image embeddings (for analysis)."""
+    return torch.no_grad()(lambda params, embs: apply_image(pair, params, embs))

@@ -107,9 +107,10 @@ def _reduced_similarities(
         def _max_and_mean(emb, count):
             valid = _valid_mask(p, count)
             # padding rows get a constant unit vector (zero rows have a NaN
-            # norm gradient); their similarities are masked out below
-            unit = torch.zeros(d, dtype=emb.dtype, device=emb.device)
-            unit[0] = 1.0
+            # norm gradient); their similarities are masked out below.  Made
+            # by a comparison: an indexed store of a Python scalar can copy
+            # it host-to-device inside the train and eval loops
+            unit = (torch.arange(d, device=emb.device) == 0).to(emb.dtype)
             emb = torch.where(valid[..., None], emb, unit)
             if use_kernel:
                 sims = _pairwise(image_embs, emb.reshape(c * p, d), True).reshape(

@@ -5,12 +5,17 @@ falls back: asking for CUDA on a host without it raises.  On CUDA, TF32 is
 turned off for matmuls and cuDNN convolutions, because the JAX package
 computes float32 at ``Precision.HIGHEST`` (cuDNN convolutions default to
 TF32, which keeps about three decimal digits).
+
+:func:`upload` and :func:`readback` move data to and from the card without
+a synchronisation per tensor: uploads go through pinned memory, and a
+readback of many tensors waits on the stream once.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -28,3 +33,51 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """A numpy array on ``device``; to CUDA through pinned memory without
+    blocking the host (an ordinary host-to-device copy synchronises)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def readback(tree):
+    """Every tensor of a nested dict / list / tuple / NamedTuple as numpy,
+    with one synchronisation for all of them (CUDA tensors are copied into
+    pinned memory without blocking, then the stream is waited on once)."""
+    copies = []
+
+    def start(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                dst = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                dst.copy_(x, non_blocking=True)
+                copies.append(x.device)
+                return dst
+            return x.detach()
+        if isinstance(x, dict):
+            return {k: start(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(start(v) for v in x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(start(v) for v in x)
+        return x
+
+    def finish(x):
+        if isinstance(x, torch.Tensor):
+            return x.numpy()
+        if isinstance(x, dict):
+            return {k: finish(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(finish(v) for v in x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(finish(v) for v in x)
+        return x
+
+    staged = start(tree)
+    for dev in set(copies):
+        torch.cuda.current_stream(dev).synchronize()
+    return finish(staged)

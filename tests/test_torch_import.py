@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports no JAX, nothing of the JAX
 package and none of the packages the card's machine lacks (transformers,
-safetensors, matplotlib, sklearn), and its entry points do not quietly run
-on the CPU."""
+safetensors, matplotlib, sklearn, tensorboard, optax), and its entry
+points do not quietly run on the CPU."""
 
 import ast
 import os
@@ -15,7 +15,12 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "incremental_multimodal_medical_learning_ii_torch"
 FORBIDDEN = ("jax", "jaxlib", "incremental_multimodal_medical_learning_ii_tpu",
-             "transformers", "safetensors", "matplotlib", "sklearn")
+             "transformers", "safetensors", "matplotlib", "sklearn", "tensorboard", "optax")
+# the training slice's modules, which must be among those imported
+TRAINING_MODULES = ("engine.steps", "engine.trainer", "engine.protocols", "engine.cl",
+                    "engine.checkpoint", "evaluation.metrics", "evaluation.tb",
+                    "objectives.losses", "data.store", "cli.zero_joint_bounds",
+                    "cli.data_incremental", "cli.class_incremental")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -38,7 +43,9 @@ def test_import_all_submodules_loads_no_jax():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     n_modules, loaded = int(lines[0]), lines[1:]
-    assert n_modules >= 20
+    assert n_modules >= 32
+    port = "incremental_multimodal_medical_learning_ii_torch."
+    assert all(port + m in loaded for m in TRAINING_MODULES)
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -90,6 +97,35 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_classifier(p.parse_args(["--random-weights"]))
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("driver", ["zero_joint_bounds", "data_incremental", "class_incremental"])
+def test_drivers_refuse_without_cuda_and_refuse_what_is_not_ported(monkeypatch, tmp_path, driver):
+    """The drivers ask for CUDA unless ``--device cpu``; figures,
+    ``--tsne-plots``, ``--trace-dir`` and more than one card raise "not yet
+    ported" (before any data is read)."""
+    import importlib
+
+    main = importlib.import_module(
+        f"incremental_multimodal_medical_learning_ii_torch.cli.{driver}").main
+    base = ["--synthetic", "--epochs", "1", "--log-dir", str(tmp_path)]
+    for flags in (["--plot-figures", "final"], ["--tsne-plots"], ["--trace-dir", str(tmp_path)],
+                  ["--mesh-devices", "2"]):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            main([*base, *flags, "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(base)
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import PromptBank
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
+
+    bank = PromptBank(torch.zeros(5, 1, 128), torch.zeros(5, 1, 128),
+                      torch.ones(5, dtype=torch.int32), torch.ones(5, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(ExperimentConfig(), bank)
+    with pytest.raises(NotImplementedError, match="figures need matplotlib"):
+        Trainer(ExperimentConfig(plot_figures="reference"), bank, device="cpu")
 
 
 def test_kernel_wrappers_refuse_foreign_devices():

@@ -9,6 +9,19 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module of toy-size steps: thousands of
+    tiny ops run several times faster than with a thread pool, above all
+    beside the other test workers.  Import it into a test module to use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_numpy_tree(tree):
