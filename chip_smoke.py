@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
-    python3 chip_smoke.py --profile  # also torch.profiler windows (a batch, a text encode)
+    python3 chip_smoke.py --profile  # also torch.profiler windows (a batch, text and extraction encodes)
 
 Phases, in order; any failure ends the script with a non-zero exit code
 and without the final result line:
@@ -62,7 +62,21 @@ and without the final result line:
    launches in each run must equal what its eval passes imply; the same
    runs on the CPU must agree with the card's (losses 1e-5, AUROC 1e-3,
    myCL reset counts within 0.5% of the weights on 99% of the steps, and
-   on every step of one step from the same state).
+   on every step of one step from the same state);
+13. embedding extraction at the extraction CLI's defaults (batch 128, 512^2,
+   bf16, grayscale conv1, the shared-size path, readback window 4):
+   ``--synthetic 4096`` through the CLI's ``main`` with each batch's upload
+   and forward under ``torch.cuda.set_sync_debug_mode("error")`` (images/s,
+   stats, shards), then a cut run of 2048 resumed to 4096, bit for bit the
+   clean run; mixed CheXpert shapes through the indexed path against one
+   image at a time; 8 images in fp32 (TF32 off), the card against its own
+   CPU, and bf16 against fp32; the int8 trunk (the int32 sums of three convs
+   equal the CPU's exact path, its embedding against bf16, images/s); the
+   device encode alone with layer1 through K2 against cuDNN, in turns, and
+   K2 against its plain version at (128, 128, 128, 64); ``reproduce
+   --rehearsal`` with each gate's wall time, and ``--dry-run`` on the card
+   against the CPU; the classify CLI serving ``--adapter-checkpoint`` from
+   a short training run, the card against the CPU.
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -1515,12 +1529,412 @@ def training(bank, results):
 
 
 # ----------------------------------------------------------------------
+# embedding extraction, the paper's table and served checkpoints
+# ----------------------------------------------------------------------
+EXTRACT_N = 4096  # images of the CLI's clean run; its cut run stops at half of them
+EXTRACT_BS = 128  # the extraction CLI's defaults: batch 128, 512^2, bf16, grayscale conv1
+EXTRACT_SIZE = 512
+EMB_ATOL = 2e-4  # the ResNet bar (PARITY.md), fp32 with TF32 off
+INT8_COS = 0.99  # the int8 trunk against bf16 (tests/test_quant.py:78,97)
+INT8_N = 1024  # images timed through the int8 trunk
+REPRO_ATOL = 1e-3  # a --dry-run gate's AUROC, the card against the CPU (phase 12's bar)
+SCORE_ATOL = 1e-4  # served scores, the card against the CPU, fp32
+
+
+def counters():
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import flash_attention
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
+        fused_bottleneck_layer,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        fused_pairwise_cosine,
+    )
+
+    return {"fused_cosine": fused_pairwise_cosine, "fused_bottleneck": fused_bottleneck_layer,
+            "flash_attention": flash_attention}
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def guarded_extraction(calls: dict):
+    """Run the body of ``extract_embeddings``' dispatch loop (upload and
+    forward of each batch) under ``torch.cuda.set_sync_debug_mode("error")``:
+    the prefetch generator turns the guard on as it hands a batch to the loop
+    and off when the loop asks for the next one, and ``readback`` (the one
+    synchronisation a window makes) runs unguarded.  ``calls`` counts the
+    guarded batches.  Returns the undo function."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.engine import extract as emod
+
+    prefetch, readback = emod._prefetch, emod.readback
+
+    def guarded_prefetch(gen, depth=2):
+        it = prefetch(gen, depth)
+        try:
+            for item in it:
+                calls["batches"] = calls.get("batches", 0) + 1
+                torch.cuda.set_sync_debug_mode("error")
+                yield item
+                torch.cuda.set_sync_debug_mode("default")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            it.close()
+
+    def unguarded_readback(tree):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            calls["readbacks"] = calls.get("readbacks", 0) + 1
+            return readback(tree)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    emod._prefetch, emod.readback = guarded_prefetch, unguarded_readback
+    return lambda: (setattr(emod, "_prefetch", prefetch), setattr(emod, "readback", readback))
+
+
+def extraction_cli(tmp: Path, results) -> dict:
+    """(a) The extraction CLI end to end at its defaults; a cut run resumed
+    to the same images must equal the clean run bit for bit."""
+    import numpy as np
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import extract_embeddings as cli
+
+    flags = ["--batch-size", str(EXTRACT_BS), "--size", str(EXTRACT_SIZE)]
+    # warm-up, not measured: the first forward at this shape
+    cli.main(["--synthetic", str(EXTRACT_BS), "--out-dir", str(tmp / "warm"), *flags])
+    calls: dict = {}
+    undo = guarded_extraction(calls)
+    try:
+        zero_counts()
+        clean = cli.main(["--synthetic", str(EXTRACT_N), "--out-dir", str(tmp / "clean"), *flags])
+        launches = read_counts()
+    finally:
+        undo()
+    batches = EXTRACT_N // EXTRACT_BS
+    ds = clean["dataset"]
+    check(ds.embeddings.shape == (EXTRACT_N, 128) and bool(np.isfinite(ds.embeddings).all()),
+          f"extraction output {ds.embeddings.shape}")
+    check(clean["stats"]["batches"] == batches == calls.get("batches")
+          and clean["stats"]["retried_batches"] == 0, f"extraction stats {clean['stats']} {calls}")
+    check(not any(launches.values()), f"extraction launched a kernel off its path: {launches}")
+    cli.main(["--synthetic", str(EXTRACT_N // 2), "--out-dir", str(tmp / "cut"), *flags])
+    resumed = cli.main(["--synthetic", str(EXTRACT_N), "--out-dir", str(tmp / "cut"), "--resume",
+                        *flags])
+    rds = resumed["dataset"]
+    bit_exact = (np.array_equal(rds.embeddings, ds.embeddings)
+                 and np.array_equal(rds.labels, ds.labels))
+    diff = float(np.abs(rds.embeddings - ds.embeddings).max())
+    out = dict(images=EXTRACT_N, batch=EXTRACT_BS, size=EXTRACT_SIZE, wall_s=clean["seconds"],
+               images_per_s=clean["fresh"] / clean["seconds"], stats=clean["stats"],
+               shards=clean["shards"], guarded_batches=calls.get("batches"),
+               readbacks=calls.get("readbacks"), launches=launches,
+               resumed_fresh=resumed["fresh"], resumed_shards=resumed["shards"],
+               resumed_bit_exact=bit_exact, resumed_max_abs_diff=diff)
+    log(f"  (a) extraction CLI: {json.dumps(out)}")
+    check(resumed["fresh"] == EXTRACT_N // 2 and resumed["shards"] == 2,
+          f"the resumed run extracted {resumed['fresh']} images into {resumed['shards']} shards")
+    check(bit_exact, f"the resumed run differs from the clean run by {diff}")
+    results["extraction_cli"] = out
+    return out
+
+
+def extraction_paths(model, results) -> None:
+    """(b) mixed CheXpert shapes through the indexed path against one image
+    at a time (the shared path); (c) the card against its own CPU in fp32,
+    and bf16 against fp32 on the card."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli.extract_embeddings import (
+        synthetic_images,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import extract_embeddings
+
+    def run(items, **kw):
+        kw = {"size": EXTRACT_SIZE, "dtype": torch.float32, **kw}
+        return extract_embeddings(list(items), model, **kw).embeddings
+
+    labels = np.zeros(5, np.float32)
+    mixed = [(im, labels) for im in synthetic_cxrs(12, seed=5)]
+    indexed = run(mixed, batch_size=6, device="cuda")
+    lone = run(mixed, batch_size=1, device="cuda")
+    b = dict(images=len(mixed), shapes=len({im.shape for im, _ in mixed}),
+             max_abs_diff=float(np.abs(indexed - lone).max()),
+             max_abs_emb=float(np.abs(lone).max()), min_cos=float(row_cos(indexed, lone).min()))
+    log(f"  (b) indexed path, mixed shapes, vs one image at a time (fp32): {json.dumps(b)}")
+    check(b["max_abs_diff"] <= EMB_ATOL, f"indexed vs shared path: {b}")
+
+    items = list(synthetic_images(8))
+    card = run(items, batch_size=8, device="cuda")
+    cpu = run(items, batch_size=8, device="cpu")
+    bf16 = run(items, batch_size=8, device="cuda", dtype=torch.bfloat16)
+    c = dict(images=len(items), max_abs_diff=float(np.abs(card - cpu).max()),
+             max_abs_emb=float(np.abs(cpu).max()), bf16_vs_fp32_min_cos=float(row_cos(bf16, card).min()))
+    log(f"  (c) 512^2 fp32 (TF32 off), the card against its CPU: {json.dumps(c)}")
+    check(c["max_abs_diff"] <= EMB_ATOL, f"the card's embeddings differ from the CPU's: {c}")
+    check(c["bf16_vs_fp32_min_cos"] > EMB_COS, f"bf16 vs fp32 on the card: {c}")
+    results["extraction_paths"] = {"indexed_vs_shared": b, "card_vs_cpu": c}
+
+
+def row_cos(a, b):
+    import numpy as np
+
+    return np.sum(a * b, 1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def int8_trunk(model, results) -> None:
+    """(d) The int8 trunk: the int32 sums of three convs on the card equal
+    the CPU's exact path; its embedding against bf16; its images/s."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli.extract_embeddings import (
+        synthetic_images,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import extract_embeddings
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        fold_grayscale_conv1,
+        quantize_biovil_int8,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.quant import conv_int8_sums
+
+    enc = quantize_biovil_int8(fold_grayscale_conv1(model)).encoder
+    g = torch.Generator().manual_seed(13)
+    convs = {  # conv: (module, input shape (B, C, H, W)), at the 512^2 forward's shapes
+        "conv1 7x7/2 (cin 1)": (enc.conv1, (2, 1, 512, 512)),
+        "layer1.0.conv2 3x3": (enc.layer1[0].conv2, (2, 64, 128, 128)),
+        "layer2.0.downsample 1x1/2": (enc.layer2[0].downsample_conv, (2, 256, 128, 128)),
+    }
+    sums = {}
+    for name, (conv, shape) in convs.items():
+        xq = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        xq = xq.contiguous(memory_format=torch.channels_last)
+        cpu = conv_int8_sums(xq, conv.kernel_q, conv.stride, conv.padding)
+        card = conv_int8_sums(xq.cuda(), conv.kernel_q.cuda(), conv.stride, conv.padding)
+        equal = bool(torch.equal(card.cpu(), cpu))
+        sums[name] = dict(shape=list(cpu.shape), equal=equal,
+                          max_abs_sum=int(cpu.abs().max()))
+        check(card.dtype == torch.int32 and equal, f"int8 conv {name}: the card's sums differ")
+    log(f"  (d) int8 conv sums, card vs CPU: {json.dumps(sums)}")
+
+    items = list(synthetic_images(EXTRACT_BS))
+    kw = dict(batch_size=EXTRACT_BS, size=EXTRACT_SIZE, device="cuda")
+    bf16 = extract_embeddings(items, model, **kw).embeddings
+    int8 = extract_embeddings(items, model, int8=True, **kw).embeddings
+    cos = float(row_cos(int8, bf16).min())
+    many = list(synthetic_images(INT8_N))
+    rates = {}
+    for name, flag in (("int8", True), ("bf16", False), ("bf16 (2nd)", False), ("int8 (2nd)", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extract_embeddings(many, model, int8=flag, **kw)
+        rates[name] = INT8_N / (time.perf_counter() - t0)
+    out = dict(sums=sums, int8_vs_bf16_min_cos=cos, images_per_s=rates)
+    log(f"  (d) int8 trunk: embedding vs bf16 min cos {cos:.6f}; images/s at batch "
+        f"{EXTRACT_BS}, {INT8_N} images, extract_embeddings in turns: {json.dumps(rates)}")
+    check(bool(np.isfinite(int8).all()) and cos > INT8_COS, f"int8 vs bf16 embedding cos {cos}")
+    results["int8"] = out
+
+
+def device_encode(model, results, profile: bool = False) -> dict:
+    """(e) The device encode alone (``preprocess_device_shared`` then
+    BioViL), batch 128, 512^2, bf16, grayscale: layer1 through K2 against the
+    cuDNN chain, in turns; K2 against its plain version at the layer's shape
+    in this forward, (128, 128, 128, 64), and its launches."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        biovil_image_forward,
+        fold_grayscale_conv1,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.models.resnet import max_pool_3x3_s2
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
+        folded_layer,
+        fused_bottleneck_layer,
+        fused_bottleneck_layer_reference,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.preprocess import (
+        SharedSizePreprocessPlan,
+        preprocess_device_shared,
+    )
+
+    fm = fold_grayscale_conv1(model).cuda()
+    plan = SharedSizePreprocessPlan(390, 320, size=EXTRACT_SIZE)
+    rng = np.random.default_rng(0)
+    raw = torch.from_numpy(rng.integers(0, 256, (EXTRACT_BS, 390, 320), dtype=np.uint8)).cuda()
+    w_h, w_w = torch.from_numpy(plan.w_h).cuda(), torch.from_numpy(plan.w_w).cuda()
+
+    @torch.no_grad()
+    def encode(fused: bool):
+        imgs = preprocess_device_shared(raw, w_h, w_w, channels=1)
+        return biovil_image_forward(fm, imgs, dtype=torch.bfloat16,
+                                    fused_layer1=fused).projected_global_embedding
+
+    encode(True)  # warm-up: the layer fold, cuDNN's first calls
+    encode(False)
+    torch.cuda.synchronize()
+    zero_counts()
+    fused = encode(True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["fused_bottleneck"] == 3, f"K2 launched {launches} in one encode, not 3")
+    cos = float(row_cos(fused.float().cpu().numpy(), encode(False).float().cpu().numpy()).min())
+    check(cos > EMB_COS, f"the K2 encode against the cuDNN encode: cos {cos}")
+    med = alternating_ms({"fused_layer1_ms": lambda: encode(True),
+                          "cudnn_ms": lambda: encode(False)}, iters=3)
+    enc = dict(batch=EXTRACT_BS, size=EXTRACT_SIZE, **med, k2_launches=launches["fused_bottleneck"],
+               min_cos_vs_cudnn=cos,
+               images_per_s={k[:-3]: EXTRACT_BS / (v / 1e3) for k, v in med.items()})
+    log(f"  (e) device encode: {json.dumps(enc)}")
+    if profile:
+        for fused in (True, False):
+            profile_window(f"one extraction encode, batch {EXTRACT_BS} at {EXTRACT_SIZE}^2, bf16, "
+                           f"{'K2' if fused else 'cuDNN'} layer1", lambda: encode(fused), results)
+
+    # K2 at this forward's layer1 input
+    folded = folded_layer(fm.encoder.layer1)
+    with torch.no_grad():
+        t = preprocess_device_shared(raw, w_h, w_w, channels=1).to(torch.bfloat16)
+        t = t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        t = max_pool_3x3_s2(torch.relu(fm.encoder.bn1(fm.encoder.conv1(t))))
+        x = t.permute(0, 2, 3, 1).contiguous()
+        shape = tuple(x.shape)
+        got, ref = fused_bottleneck_layer(x, folded), fused_bottleneck_layer_reference(x, folded)
+        m = layer_metrics(got, ref)
+        check(m["rel"] < LAYER_CHAIN_REL and m["cos"] > LAYER_COS
+              and bool(torch.isfinite(got).all()), f"K2 at {shape}: {m}")
+        bound, by, flops = layer_bound_ms(shape, folded)
+        lib = cudnn_layer(folded)
+        times = alternating_ms({"ms": lambda: fused_bottleneck_layer(x, folded),
+                                "library_ms": lambda: lib(x)}, iters=5)
+        k2 = dict(shape=list(shape), **m, **times,
+                  plain_ms=cuda_time_ms(lambda: fused_bottleneck_layer_reference(x, folded), 2, 1),
+                  bound_ms=bound, bound_by=by, tflops=flops / times["ms"] / 1e9,
+                  kernel_device_ms=profiled_device_ms(lambda: fused_bottleneck_layer(x, folded),
+                                                      fused_bottleneck_layer, K2_KERNEL,
+                                                      times["ms"], bound, iters=10))
+    log(f"  (e) K2 at {shape}: {json.dumps(k2)}")
+    del got, ref, x, t
+    torch.cuda.empty_cache()
+    results["device_encode"] = enc
+    results["k2_extraction"] = k2
+    return k2
+
+
+def reproduce_gates(tmp: Path, results) -> dict:
+    """(f) ``reproduce --rehearsal`` on the card, the wall time of each gate
+    and K1's launches; ``--dry-run`` on the card against the CPU."""
+    import contextlib
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import reproduce
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rehearsal = reproduce.main(["--rehearsal", "--log-dir", str(tmp / "rehearsal")])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches["fused_cosine"] > 0 and launches["fused_bottleneck"] == 0
+          and launches["flash_attention"] == 0, f"reproduce --rehearsal launches {launches}")
+    check(all(0.0 <= g["measured"] <= 1.0 for g in rehearsal.values()), f"gates {rehearsal}")
+    dry = {}
+    for device in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            dry[device] = reproduce.main(["--dry-run", "--device", device,
+                                          "--log-dir", str(tmp / f"dry-{device}")])
+    diffs = {g: abs(dry["cuda"][g]["measured"] - dry["cpu"][g]["measured"]) for g in dry["cpu"]}
+    out = dict(rehearsal_wall_s=wall, launches=launches,
+               gates={g: dict(auroc=v["measured"], wall_s=v["wall_s"]) for g, v in rehearsal.items()},
+               class_inc_curve=rehearsal["class-inc"]["curve"], dry_run_card_vs_cpu=diffs,
+               dry_run_wall_s={d: {g: v["wall_s"] for g, v in r.items()} for d, r in dry.items()})
+    log(f"  (f) reproduce: {json.dumps(out)}")
+    check(max(diffs.values()) <= REPRO_ATOL, f"--dry-run gates, card vs CPU: {diffs}")
+    results["reproduce"] = out
+    return out
+
+
+def served_checkpoint(tmp: Path, results) -> dict:
+    """(g) The classify CLI serving ``--adapter-checkpoint`` from a short
+    training run of the port: K1's launches on the card, and the scores of
+    the pieces each CLI built (fp32) on the card against the CPU."""
+    import argparse
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import classify, zero_joint_bounds
+    from incremental_multimodal_medical_learning_ii_torch.inference import ChexpertClassifier
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        zero_joint_bounds.main(["--synthetic", "--epochs", "2", "--batch-size", "512",
+                                "--plot-figures", "off", "--log-dir", str(tmp / "train")])
+    (run_dir,) = [p.parent for p in (tmp / "train").rglob("train_state")]
+    p = argparse.ArgumentParser()
+    classify.add_classifier_args(p)
+    flags = ["--random-weights", "--adapter-checkpoint", str(run_dir), "--batch-size", "4"]
+    card = classify.build_classifier(p.parse_args(flags))
+    cpu = classify.build_classifier(p.parse_args([*flags, "--device", "cpu"]))
+    check(card.cfg.image_adapter and card.cfg.text_adapter and len(card.adapter_params) == 2,
+          f"the checkpoint's adapters were not served: {card.cfg}")
+    images = synthetic_cxrs(8, seed=7)
+    card.predict_arrays(images[:1])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    served, _ = card.predict_arrays(images)
+    launches = read_counts()
+    batches = -(-len(images) // 4)
+    check(launches["fused_cosine"] == batches, f"K1 launched {launches}, not once per batch")
+    kw = dict(batch_size=4, size=512, pad_to=1024, dtype=torch.float32)
+    scores = {name: ChexpertClassifier(clf.image_params, clf.bank, cfg=clf.cfg,
+                                       adapter_params=clf.adapter_params, device=dev,
+                                       **kw).predict_arrays(images)[0]
+              for name, clf, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu"))}
+    out = dict(run=run_dir.name, images=len(images), launches=launches,
+               card_vs_cpu_fp32=float(np.abs(scores["card"] - scores["cpu"]).max()),
+               bf16_vs_fp32_on_card=float(np.abs(served - scores["card"]).max()))
+    log(f"  (g) classify --adapter-checkpoint: {json.dumps(out)}")
+    check(bool(np.isfinite(served).all()) and out["card_vs_cpu_fp32"] <= SCORE_ATOL,
+          f"served scores, card vs CPU: {out}")
+    results["served_checkpoint"] = out
+    return out
+
+
+def extraction(model, results, profile: bool = False) -> dict:
+    """Phase 13: extraction, the paper's table and a served checkpoint."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_extract_"))
+    try:
+        extraction_cli(tmp, results)
+        extraction_paths(model, results)
+        int8_trunk(model, results)
+        k2 = device_encode(model, results, profile)
+        reproduce_gates(tmp, results)
+        served_checkpoint(tmp, results)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return k2
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", action="store_true",
-                    help="add torch.profiler windows over one served batch and one "
-                         "report-length text encode (flash and dense)")
+                    help="add torch.profiler windows over one served batch, one "
+                         "report-length text encode (flash and dense) and one extraction "
+                         "encode (K2 and cuDNN layer1)")
     args = ap.parse_args(argv)
 
     if not (REPO / PACKAGE / "csrc").is_dir():
@@ -1601,6 +2015,10 @@ def main(argv=None) -> int:
         "three drivers on the card (loops under sync debug mode) and on the CPU")
     eval_names = eval_kernel_checks(bank, results)
     train = training(bank, results)
+    log("[13] extraction on the card: the CLI at its defaults and a resumed run, the indexed "
+        "path, the card against its CPU, the int8 trunk, the device encode with K2 against "
+        "cuDNN, reproduce --rehearsal, serving --adapter-checkpoint")
+    k2x = extraction(model, results, args.profile)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]
@@ -1637,6 +2055,14 @@ def main(argv=None) -> int:
             launches=train["k1_launches"][name], max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"], kernel_device_ms=k["kernel_device_ms"]))
+    kernels.append(dict(  # K2 in the extraction encode (phase 13e), batch 128 at 512^2
+        name=f"fused_bottleneck (extraction {'x'.join(map(str, k2x['shape']))})", route="cuda",
+        source=f"{PACKAGE}/csrc/fused_bottleneck.cu",
+        replaces="incremental_multimodal_medical_learning_ii_tpu/ops/pallas_bottleneck.py:117",
+        launches=results["device_encode"]["k2_launches"], max_abs_err=k2x["max_abs_err"],
+        ms=k2x["ms"], plain_ms=k2x["plain_ms"], bound_ms=k2x["bound_ms"],
+        bound_by=k2x["bound_by"], library_ms=k2x["library_ms"],
+        kernel_device_ms=k2x["kernel_device_ms"], tflops=k2x["tflops"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

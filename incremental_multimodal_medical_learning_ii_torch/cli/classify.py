@@ -11,9 +11,12 @@ torch state dict) or ``--random-weights`` (seeded demo weights).  Prompt
 bank: ``--bank`` (a saved bank), else the prompts encoded by CXR-BERT from
 ``--cxr-bert-snapshot`` or ``--cxr-bert-checkpoint`` + ``--cxr-bert-vocab``,
 else the synthetic prompt encoder.  ``--reference-{image,text}-adapter``
-load the reference's trained adapters.  ``--adapter-checkpoint`` needs a
-later slice and fails with a "not yet ported" error.  Runs on CUDA unless
-``--device cpu``.
+load the reference's trained adapters; ``--adapter-checkpoint`` serves the
+adapters of a run directory's ``train_state/state.pt`` (the port's
+checkpoint; a JAX run's reaches it through
+``convert.py::train_state_from_jax``), restored into a template built from
+``--adapter``, ``--optim``, ``--shared``, ``--no-image-adapter`` and
+``--no-text-adapter``.  Runs on CUDA unless ``--device cpu``.
 
 ``add_classifier_args`` / ``build_classifier`` are shared with the HTTP
 server (``cli/serve.py``).
@@ -22,8 +25,6 @@ server (``cli/serve.py``).
 from __future__ import annotations
 
 import argparse
-
-NOT_YET_PORTED = ("adapter_checkpoint",)
 
 
 def add_classifier_args(p: argparse.ArgumentParser) -> None:
@@ -38,11 +39,22 @@ def add_classifier_args(p: argparse.ArgumentParser) -> None:
                    help="local HF snapshot dir (config.json + weights + vocab.txt)")
     p.add_argument("--seed", type=int, default=27,
                    help="prompt seed (--new-prompts samples the bank with it)")
-    p.add_argument("--adapter-checkpoint", help="(not yet ported)")
+    p.add_argument("--adapter-checkpoint",
+                   help="run dir with a saved TrainState (train_state/state.pt)")
     p.add_argument("--reference-image-adapter",
                    help="a reference image_adapter.pt (pickled torch module)")
     p.add_argument("--reference-text-adapter",
                    help="a reference text_adapter.pt (pickled torch module)")
+    p.add_argument("--adapter", choices=["mlp", "dense"], default="mlp",
+                   help="adapter architecture of --adapter-checkpoint")
+    p.add_argument("--optim", choices=["adam", "sgd"], default="adam",
+                   help="optimizer the --adapter-checkpoint was trained with (the saved "
+                   "TrainState carries its moments; the other one is tried if it does not fit)")
+    p.add_argument("--shared", action="store_true")
+    p.add_argument("--no-image-adapter", action="store_true",
+                   help="--adapter-checkpoint was trained with only a text adapter")
+    p.add_argument("--no-text-adapter", action="store_true",
+                   help="--adapter-checkpoint was trained with only an image adapter")
     p.add_argument("--train-logit-pos", action="store_true",
                    help="build the bank with mirrored negatives (TRAIN_LOGIT_DIFF=False)")
     p.add_argument("--batch-size", type=int, default=16)
@@ -57,15 +69,6 @@ def add_classifier_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fused-layer1", action="store_true",
                    help="run ResNet layer1 through the fused bottleneck kernel")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-
-
-def _reject_unported(args) -> None:
-    given = [f"--{a.replace('_', '-')}" for a in NOT_YET_PORTED if getattr(args, a, None)]
-    if given:
-        raise SystemExit(
-            f"{', '.join(given)}: not yet ported to the PyTorch package "
-            "(use the JAX package's CLI)"
-        )
 
 
 def _reference_adapters(args):
@@ -90,6 +93,51 @@ def _reference_adapters(args):
     return adapters, cfg
 
 
+def _checkpoint_adapters(args):
+    """The adapters of ``--adapter-checkpoint`` -> (ModuleDict, config).
+
+    Restores into an ``init_train_state`` template; when the optimiser
+    state does not fit (an SGD run has no moments), retries with the
+    other optimiser's template.  If that fails too, the checkpoint is
+    missing or corrupt and the first error is the one raised."""
+    import dataclasses
+    import pickle
+
+    from incremental_multimodal_medical_learning_ii_torch.engine.checkpoint import (
+        restore_checkpoint,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.engine.steps import (
+        init_train_state,
+        params_from_modules,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import joint_config
+
+    cfg = joint_config(adapter=args.adapter, shared=args.shared, optim=args.optim,
+                       image_adapter=not args.no_image_adapter,
+                       text_adapter=not args.no_text_adapter,
+                       prompt_mode="max" if args.max_emb else "mean")
+    pair = AdapterPair(cfg.adapter, cfg.shared, cfg.image_adapter, cfg.text_adapter)
+    adapters = pair.init()
+    params = params_from_modules(adapters, "cpu")
+    # what a restore raises: a missing file, a tree that does not fit, an
+    # unreadable pickle
+    failures = (OSError, ValueError, TypeError, RuntimeError, pickle.UnpicklingError)
+    try:
+        state = restore_checkpoint(args.adapter_checkpoint, init_train_state(params, cfg, "cpu"))
+    except failures as first_err:
+        other = "sgd" if args.optim == "adam" else "adam"
+        alt = init_train_state(params, dataclasses.replace(cfg, optim=other), "cpu")
+        try:
+            state = restore_checkpoint(args.adapter_checkpoint, alt)
+        except failures:
+            raise first_err from None
+        print(f"[info] checkpoint restored with an {other} optimiser-state template "
+              f"(pass --optim {other} to silence this)")
+    adapters.load_state_dict(state.params)
+    return adapters, cfg
+
+
 def build_classifier(args):
     """Construct the ChexpertClassifier from parsed CLI args."""
     from incremental_multimodal_medical_learning_ii_torch.cli.common import (
@@ -100,7 +148,6 @@ def build_classifier(args):
     from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
     from incremental_multimodal_medical_learning_ii_torch.utils.device import resolve_device
 
-    _reject_unported(args)
     device = resolve_device(args.device)
     image_model = load_image_tower(args)
     bank = build_bank(args, device)
@@ -112,6 +159,8 @@ def build_classifier(args):
     cfg, adapters = None, None
     if args.reference_image_adapter or args.reference_text_adapter:
         adapters, cfg = _reference_adapters(args)
+    elif args.adapter_checkpoint:
+        adapters, cfg = _checkpoint_adapters(args)
     elif args.max_emb:
         # zero-shot serving with MAX prompt reduction
         cfg = ExperimentConfig(adapter="no-head", image_adapter=False,

@@ -18,9 +18,11 @@ with numpy (or array-like) leaves, and returns the port's counterpart:
 optax Adam moments, counts, learning rate, step) across, so a JAX
 checkpoint resumes in the port.
 
-``load_biovil_npz`` reads a ``.npz`` bundle written by the JAX package's
-``cli/convert_weights.py`` (``utils/serialization.py`` layout) with this
-package's own reader.
+``params_to_jax`` is the inverse (a port module -> a JAX-layout numpy
+tree), so the port's ``cli/convert_weights.py`` writes bundles in the JAX
+package's format.  ``load_biovil_npz`` reads a ``.npz`` bundle written by
+either package's ``cli/convert_weights.py`` (``utils/serialization.py``
+layout).
 """
 
 from __future__ import annotations
@@ -173,6 +175,102 @@ def params_from_jax(tree: Mapping[str, Any], dims: Optional[Any] = None):
     if set(tree) <= {"image", "text", "shared"}:
         return nn.ModuleDict({k: _adapter_from_jax(v) for k, v in tree.items()})
     raise ValueError(f"unrecognised parameter tree with keys {sorted(tree)}")
+
+
+# ----------------------------------------------------------------------
+# The inverse: the port's modules -> the JAX package's layout
+# ----------------------------------------------------------------------
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _conv_to_jax(conv: nn.Module) -> dict:
+    from incremental_multimodal_medical_learning_ii_torch.ops.quant import Int8Conv2d
+
+    if isinstance(conv, Int8Conv2d):  # ops/quant.py's layout: kernel_q + w_scale
+        return {"kernel_q": _np(conv.kernel_q).transpose(2, 3, 1, 0), "w_scale": _np(conv.w_scale)}
+    return {"kernel": _np(conv.weight.to(torch.float32)).transpose(2, 3, 1, 0)}  # OIHW -> HWIO
+
+
+def _bn_to_jax(bn: FrozenBatchNorm) -> dict:
+    return {name: _np(getattr(bn, name)) for name in ("scale", "bias", "mean", "var")}
+
+
+def _block_to_jax(block: Bottleneck) -> dict:
+    out = {}
+    for i in (1, 2, 3):
+        out[f"conv{i}"] = _conv_to_jax(getattr(block, f"conv{i}"))
+        out[f"bn{i}"] = _bn_to_jax(getattr(block, f"bn{i}"))
+    if block.downsample_conv is not None:
+        out["downsample_conv"] = _conv_to_jax(block.downsample_conv)
+        out["downsample_bn"] = _bn_to_jax(block.downsample_bn)
+    return out
+
+
+def _resnet_to_jax(model: ResNet50) -> dict:
+    out = {"conv1": _conv_to_jax(model.conv1), "bn1": _bn_to_jax(model.bn1)}
+    for li in range(1, 5):
+        out[f"layer{li}"] = [_block_to_jax(b) for b in getattr(model, f"layer{li}")]
+    return out
+
+
+def _dense_to_jax(layer: nn.Linear) -> dict:
+    return {"kernel": _np(layer.weight).T.copy(), "bias": _np(layer.bias)}
+
+
+def _ln_to_jax(ln: nn.LayerNorm) -> dict:
+    return {"scale": _np(ln.weight), "bias": _np(ln.bias)}
+
+
+def _adapter_to_jax(module: nn.Module) -> dict:
+    out = {"dense1": _dense_to_jax(module.dense1)}
+    if isinstance(module, MLPAdapter):
+        out["dense2"] = _dense_to_jax(module.dense2)
+    return out
+
+
+def _bert_to_jax(model: CXRBert) -> dict:
+    emb = model.embeddings
+    out = {
+        "embeddings": {**{n: _np(getattr(emb, n).weight) for n in ("word", "position", "token_type")},
+                       "ln": _ln_to_jax(emb.ln)},
+        "layers": [
+            {**{n: _dense_to_jax(getattr(layer, n))
+                for n in ("q", "k", "v", "attn_out", "ffn_in", "ffn_out")},
+             "attn_ln": _ln_to_jax(layer.attn_ln), "ffn_ln": _ln_to_jax(layer.ffn_ln)}
+            for layer in model.layers
+        ],
+        "mlm_head": {"transform_dense": _dense_to_jax(model.mlm_head.transform_dense),
+                     "transform_ln": _ln_to_jax(model.mlm_head.transform_ln),
+                     "decoder_bias": _np(model.mlm_head.decoder_bias)},
+    }
+    if model.cls_projection is not None:
+        proj = model.cls_projection
+        out["cls_projection"] = {"dense_to_hidden": _dense_to_jax(proj.dense_to_hidden),
+                                 "ln": _ln_to_jax(proj.ln),
+                                 "dense_to_output": _dense_to_jax(proj.dense_to_output)}
+    return out
+
+
+def params_to_jax(module: nn.Module):
+    """The inverse of :func:`params_from_jax`: a port module -> the JAX
+    package's parameter tree with numpy leaves (a :class:`BioViLImageModel`,
+    a :class:`CXRBert`, one adapter or an ``nn.ModuleDict`` of adapters).
+    ``save_params_npz`` of the result is the JAX package's bundle format."""
+    if isinstance(module, BioViLImageModel):
+        proj = module.projector
+        conv2 = _conv_to_jax(proj.conv2)
+        conv2["bias"] = _np(proj.conv2_bias)
+        return {"encoder": _resnet_to_jax(module.encoder),
+                "projector": {"conv1": _conv_to_jax(proj.conv1), "bn": _bn_to_jax(proj.bn),
+                              "conv2": conv2}}
+    if isinstance(module, CXRBert):
+        return _bert_to_jax(module)
+    if isinstance(module, (MLPAdapter, LinearAdapter)):
+        return _adapter_to_jax(module)
+    if isinstance(module, nn.ModuleDict):
+        return {k: _adapter_to_jax(v) for k, v in module.items()}
+    raise ValueError(f"no JAX layout for {type(module).__name__}")
 
 
 def load_biovil_npz(path: str) -> BioViLImageModel:

@@ -19,6 +19,7 @@ from incremental_multimodal_medical_learning_ii_torch.models.resnet import (
     Conv2d,
     FrozenBatchNorm,
     ResNet50,
+    conv_apply,
     init_conv_,
     init_resnet50,
     resnet50_forward,
@@ -82,6 +83,19 @@ def fold_grayscale_conv1(model: BioViLImageModel) -> BioViLImageModel:
     return folded
 
 
+def quantize_biovil_int8(model: BioViLImageModel) -> BioViLImageModel:
+    """A copy of ``model`` with the ResNet trunk quantized to int8
+    (``ops/quant.py``); the 1x1-conv projector stays in float, as its
+    output feeds the pooled embedding directly.  Use with
+    ``biovil_image_forward(..., int8=True)``.  Refuses a model whose trunk
+    is quantized already."""
+    from incremental_multimodal_medical_learning_ii_torch.ops.quant import quantize_resnet_int8
+
+    out = BioViLImageModel(quantize_resnet_int8(model.encoder))
+    out.projector = copy.deepcopy(model.projector)
+    return out.eval()
+
+
 def _projector_forward(proj: Projector, patches_nchw: torch.Tensor) -> torch.Tensor:
     h = torch.relu(proj.bn(proj.conv1(patches_nchw)))
     return proj.conv2(h) + proj.conv2_bias.to(h.dtype).view(1, -1, 1, 1)
@@ -100,9 +114,10 @@ def biovil_image_forward(
     kernel (``ops/fused_bottleneck.py``); it needs ``dtype=torch.bfloat16``
     and no gradients through layer1 (the kernel has no backward).  Layer1
     is folded once and kept with the model (refolded only after a change to
-    its weights).  Mean/pool
-    accumulations run in fp32 under bf16 compute.  The int8 trunk of the
-    JAX package is not ported yet.
+    its weights).  ``int8=True`` expects a model from
+    :func:`quantize_biovil_int8` and runs the trunk's convs on int8 with
+    int32 sums (``ops/quant.py``).  Mean/pool accumulations run in fp32
+    under bf16 compute.
     """
     layer1_fn = None
     if fused_layer1:
@@ -119,9 +134,13 @@ def biovil_image_forward(
 
         folded = folded_layer(model.encoder.layer1)
         layer1_fn = lambda x: fused_bottleneck_layer(x, folded)  # noqa: E731
+    conv = conv_apply
     if int8:
-        raise NotImplementedError("the int8 trunk is not yet ported to the PyTorch package")
-    patches = resnet50_forward(model.encoder, images_nhwc, dtype=dtype, layer1_fn=layer1_fn)
+        from incremental_multimodal_medical_learning_ii_torch.ops.quant import conv_apply_int8
+
+        conv = conv_apply_int8
+    patches = resnet50_forward(model.encoder, images_nhwc, dtype=dtype, conv=conv,
+                               layer1_fn=layer1_fn)
     projected = _projector_forward(model.projector, patches.permute(0, 3, 1, 2))
     projected32 = projected.to(torch.float32).permute(0, 2, 3, 1)
     global_emb = torch.mean(projected32, dim=(1, 2))

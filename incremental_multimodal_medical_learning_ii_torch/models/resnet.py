@@ -78,14 +78,7 @@ class Bottleneck(nn.Module):
             self.downsample_bn = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        if self.downsample_conv is not None:
-            identity = self.downsample_bn(self.downsample_conv(x))
-        else:
-            identity = x
-        return torch.relu(out + identity)
+        return _bottleneck_forward(self, x)
 
 
 class ResNet50(nn.Module):
@@ -103,6 +96,24 @@ class ResNet50(nn.Module):
             setattr(self, f"layer{li + 1}", nn.ModuleList(layer))
 
 
+def conv_apply(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Apply one conv module.  The forwards take this as a ``conv``
+    argument so another execution of the convs (the int8 path,
+    ``ops/quant.py::conv_apply_int8``) reuses the block and layer structure."""
+    return conv(x)
+
+
+def _bottleneck_forward(block: Bottleneck, x: torch.Tensor, conv=conv_apply) -> torch.Tensor:
+    out = torch.relu(block.bn1(conv(block.conv1, x)))
+    out = torch.relu(block.bn2(conv(block.conv2, out)))
+    out = block.bn3(conv(block.conv3, out))
+    if block.downsample_conv is not None:
+        identity = block.downsample_bn(conv(block.downsample_conv, x))
+    else:
+        identity = x
+    return torch.relu(out + identity)
+
+
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch MaxPool2d(kernel=3, stride=2, padding=1); padding is -inf."""
     return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
@@ -112,23 +123,26 @@ def resnet50_forward(
     model: ResNet50,
     x_nhwc: torch.Tensor,
     dtype: torch.dtype = torch.float32,
+    conv=conv_apply,
     layer1_fn=None,
 ) -> torch.Tensor:
     """(B, H, W, C) -> x4 (B, H/32, W/32, 2048), NHWC.
 
+    ``conv(module, x)`` applies each of the 53 convolutions (default: the
+    module itself; ``ops/quant.py::conv_apply_int8`` for the int8 trunk).
     ``layer1_fn``, if given, replaces the whole stride-1 layer1 block chain
     (the hook for the fused kernel, ``ops/fused_bottleneck.py``); it takes
     and returns NHWC.
     """
     x = x_nhwc.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    out = max_pool_3x3_s2(torch.relu(model.bn1(model.conv1(x))))
+    out = max_pool_3x3_s2(torch.relu(model.bn1(conv(model.conv1, x))))
     for li in range(4):
         if li == 0 and layer1_fn is not None:
             nhwc = out.permute(0, 2, 3, 1).contiguous()
             out = layer1_fn(nhwc).permute(0, 3, 1, 2)
             continue
         for block in getattr(model, f"layer{li + 1}"):
-            out = block(out)
+            out = _bottleneck_forward(block, out, conv)
     return out.permute(0, 2, 3, 1)
 
 

@@ -1,11 +1,17 @@
-"""CXR preprocessing on the device: the BioViL pipeline as batched matmuls.
+"""CXR preprocessing: the BioViL pipeline on the host (PIL) and on the
+device (batched matmuls).
 
-Counterpart of the JAX package's ``ops/preprocess.py`` (device path).  The
-reference pipeline is ToPILImage -> Resize(size) -> CenterCrop(size) ->
-ToTensor (/255) -> ExpandChannels (1->3).  The host builds a padded raw
-uint8 buffer and PIL-parity resize matrices with the center crop folded
-in (:class:`DevicePreprocessPlan`); the device does the resize as two
-batched matmuls, uint8 rounding and /255.
+Counterpart of the JAX package's ``ops/preprocess.py``.  The reference
+pipeline is ToPILImage -> Resize(size) -> CenterCrop(size) -> ToTensor
+(/255) -> ExpandChannels (1->3).
+
+* :func:`preprocess_host` runs it with PIL, for ``--host-preprocess``;
+* the device paths take raw uint8 pixels and PIL-parity resize matrices
+  with the center crop folded in, built on the host: one pair per distinct
+  shape with a per-image index (:class:`DevicePreprocessPlan`,
+  :func:`preprocess_device_indexed`), or one pair for a batch of one shape
+  (:class:`SharedSizePreprocessPlan`, :func:`preprocess_device_shared`);
+  the device does the resize as two matmuls, uint8 rounding and /255.
 """
 
 from __future__ import annotations
@@ -16,36 +22,46 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from incremental_multimodal_medical_learning_ii_torch.data.images import (  # noqa: F401
+    remap_to_uint8,  # kept here too, where the JAX package has it
+)
 from incremental_multimodal_medical_learning_ii_torch.ops.resize import (
+    apply_uint8_rounding,
     batched_matmul_resize,
     resize_matrix,
     resize_shape_for_smaller_edge,
 )
 
 
-def remap_to_uint8(array: np.ndarray, percentiles: Optional[Tuple[float, float]] = None) -> np.ndarray:
-    """Min-max (or percentile-clipped) remap to [0, 255] uint8
-    (``health_multimodal/image/data/io.py:16-47``)."""
-    array = array.astype(float)
-    if percentiles is not None:
-        if len(percentiles) != 2:
-            raise ValueError(
-                "The value for percentiles should be a sequence of length 2,"
-                f" but has length {len(percentiles)}"
-            )
-        a, b = percentiles
-        if a >= b:
-            raise ValueError(f'Percentiles must be in ascending order, but a sequence "{percentiles}" was passed')
-        if a < 0 or b > 100:
-            raise ValueError(f'Percentiles must be in the range [0, 100], but a sequence "{percentiles}" was passed')
-        cutoff = np.percentile(array, percentiles)
-        array = np.clip(array, *cutoff)
-    array -= array.min()
-    mx = array.max()
-    if mx > 0:
-        array /= mx
-    array *= 255
-    return array.astype(np.uint8)
+def center_crop_bounds(h: int, w: int, crop: int) -> Tuple[int, int]:
+    """torchvision CenterCrop corner: int(round((dim - crop) / 2))."""
+    top = int(round((h - crop) / 2.0))
+    left = int(round((w - crop) / 2.0))
+    return top, left
+
+
+def preprocess_host(image_u8: np.ndarray, size: int = 512, crop: Optional[int] = None) -> np.ndarray:
+    """(H, W) uint8 -> (crop, crop, 3) float32 in [0,1]; the reference
+    pipeline itself via PIL (Resize smaller edge -> CenterCrop -> /255 ->
+    3ch).  PIL is imported here, so the device paths never need it."""
+    from PIL import Image
+
+    crop = crop or size
+    pil = Image.fromarray(image_u8, mode="L")
+    h, w = image_u8.shape
+    out_h, out_w = resize_shape_for_smaller_edge(h, w, size)
+    pil = pil.resize((out_w, out_h), Image.BILINEAR)
+    arr = np.asarray(pil)
+    top, left = center_crop_bounds(out_h, out_w, crop)
+    if top < 0 or left < 0 or out_h < crop or out_w < crop:  # pad if smaller
+        padded = np.zeros((max(out_h, crop), max(out_w, crop)), np.uint8)
+        py, px = (padded.shape[0] - out_h) // 2, (padded.shape[1] - out_w) // 2
+        padded[py : py + out_h, px : px + out_w] = arr
+        arr = padded
+        top, left = center_crop_bounds(arr.shape[0], arr.shape[1], crop)
+    arr = arr[top : top + crop, left : left + crop]
+    out = (arr.astype(np.float32) / 255.0)[..., None]
+    return np.repeat(out, 3, axis=-1)
 
 
 def _effective_crop_start(out: int, crop: int) -> int:
@@ -176,3 +192,44 @@ def preprocess_device_indexed(
     batch; the per-image matrices are gathered on the device."""
     idx = idx.long()
     return preprocess_device(raw, uniq_w_h[idx], uniq_w_w[idx], channels=channels)
+
+
+class SharedSizePreprocessPlan:
+    """Uniform-size batches (CheXpert-small is mostly one geometry): one
+    weight-matrix pair shared by the whole batch, so only the raw uint8
+    pixels cross to the device with each batch."""
+
+    def __init__(self, height: int, width: int, size: int = 512, crop: Optional[int] = None):
+        self.height, self.width = height, width
+        self.size = size
+        self.crop = crop or size
+        out_h, out_w = resize_shape_for_smaller_edge(height, width, size)
+        top = _effective_crop_start(out_h, self.crop)
+        left = _effective_crop_start(out_w, self.crop)
+        self.w_h = _crop_rows(resize_matrix(height, out_h), top, self.crop)
+        self.w_w = _crop_rows(resize_matrix(width, out_w), left, self.crop)
+
+    def prepare(self, images: Sequence[np.ndarray]) -> np.ndarray:
+        raw = np.stack(images)
+        if raw.shape[1:] != (self.height, self.width):
+            raise ValueError(f"expected {(self.height, self.width)} images, got {raw.shape[1:]}")
+        return raw
+
+
+def preprocess_device_shared(
+    raw: torch.Tensor, w_h: torch.Tensor, w_w: torch.Tensor, channels: int = 3
+) -> torch.Tensor:
+    """(B, H, W) u8 with one shared (crop, H) / (crop, W) matrix pair ->
+    (B, crop, crop, C) float32: two fp32 products (TF32 off on the card,
+    as the JAX side's ``Precision.HIGHEST``), uint8 rounding, /255."""
+    x = raw.to(torch.float32)
+    out = torch.matmul(w_h, x)
+    out = torch.matmul(out, w_w.transpose(0, 1))
+    return _normalize_and_expand(apply_uint8_rounding(out), channels)
+
+
+def expand_channels(x: torch.Tensor) -> torch.Tensor:
+    """(..., 1) -> (..., 3) (``ExpandChannels``, DataRetrieval.py:27-40)."""
+    if x.shape[-1] != 1:
+        raise ValueError(f"Expected trailing channel dim 1, found {tuple(x.shape)}")
+    return x.expand(*x.shape[:-1], 3)

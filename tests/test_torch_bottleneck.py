@@ -297,5 +297,6 @@ def test_fused_layer1_rejections():
         biovil_image_forward(model, img, fused_layer1=True)
     with pytest.raises(ValueError, match="int8"):
         biovil_image_forward(model, img, dtype=torch.bfloat16, int8=True, fused_layer1=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the int8 trunk is ported (tests/test_torch_quant.py); it needs a quantized model
+    with pytest.raises(ValueError, match="quantize_biovil_int8"):
         biovil_image_forward(model, img, int8=True)

@@ -180,10 +180,11 @@ def test_predict_paths_and_cli(setup, tmp_path, capsys):
                    "--batch-size", "2", *paths])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-3].startswith("image,Atelectasis") and out[-1].startswith(paths[1])
-    # the one flag of the slice still waiting for the train-step slice
-    with pytest.raises(SystemExit, match="--adapter-checkpoint: not yet ported"):
+    # --adapter-checkpoint restores a run's TrainState (tests/test_torch_adapter_checkpoint.py);
+    # a directory without one is an error, not a zero-shot classifier
+    with pytest.raises(FileNotFoundError, match="train_state"):
         classify.build_classifier(p.parse_args(["--random-weights", "--device", "cpu",
-                                                "--adapter-checkpoint", "x"]))
+                                                "--adapter-checkpoint", str(tmp_path / "x")]))
 
 
 # ----------------------------------------------------------------------

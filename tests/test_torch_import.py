@@ -21,6 +21,11 @@ TRAINING_MODULES = ("engine.steps", "engine.trainer", "engine.protocols", "engin
                     "engine.checkpoint", "evaluation.metrics", "evaluation.tb",
                     "objectives.losses", "data.store", "cli.zero_joint_bounds",
                     "cli.data_incremental", "cli.class_incremental")
+# the extraction slice's modules, and the paper's table over the drivers
+EXTRACTION_MODULES = ("engine.extract", "ops.quant", "ops.preprocess", "data.images",
+                      "data.manifest", "utils.serialization", "cli.extract_embeddings",
+                      "cli.verify_embeddings", "cli.convert_weights", "cli.prepare_data",
+                      "cli.reproduce")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -45,7 +50,7 @@ def test_import_all_submodules_loads_no_jax():
     n_modules, loaded = int(lines[0]), lines[1:]
     assert n_modules >= 32
     port = "incremental_multimodal_medical_learning_ii_torch."
-    assert all(port + m in loaded for m in TRAINING_MODULES)
+    assert all(port + m in loaded for m in TRAINING_MODULES + EXTRACTION_MODULES)
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -97,6 +102,30 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_classifier(p.parse_args(["--random-weights"]))
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["extract_embeddings", "cli.extract_embeddings",
+                                   "cli.reproduce"])
+def test_extraction_entry_points_refuse_without_cuda(monkeypatch, tmp_path, entry):
+    """Extraction and the paper's table ask for CUDA unless given the CPU."""
+    from incremental_multimodal_medical_learning_ii_torch.cli import extract_embeddings as cli
+    from incremental_multimodal_medical_learning_ii_torch.cli import reproduce
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import (
+        extract_embeddings,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        init_biovil_image_model,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "extract_embeddings":
+            extract_embeddings(iter([]), init_biovil_image_model())
+        elif entry == "cli.extract_embeddings":
+            cli.main(["--synthetic", "2", "--out-dir", str(tmp_path)])
+        else:
+            reproduce.main(["--dry-run", "--log-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("driver", ["zero_joint_bounds", "data_incremental", "class_incremental"])

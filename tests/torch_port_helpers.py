@@ -78,6 +78,23 @@ def biovil_numpy_params(seed: int = 0, bn_seed: int | None = 3):
     return tree
 
 
+def biovil_numpy_params_from_port(seed: int = 0, bn_seed: int | None = 3):
+    """A BioViL tree in the JAX layout from the port's seeded init (a torch
+    generator), at torch's default conv scale, optionally with randomized
+    BN statistics: the same weights for both packages at a fraction of the
+    JAX init's cost (the eager JAX init takes ~15 s on the CPU)."""
+    from incremental_multimodal_medical_learning_ii_torch.convert import params_to_jax
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        init_biovil_image_model,
+    )
+
+    tree = params_to_jax(init_biovil_image_model(torch.Generator().manual_seed(seed)))
+    tree = _torch_default_conv_scale(tree)
+    if bn_seed is not None:
+        tree = randomize_bn(tree, np.random.default_rng(bn_seed))
+    return tree
+
+
 def assert_parity(name: str, ours, ref, atol: float) -> float:
     """assert_allclose(ours, ref, atol, rtol=0), printing the measured
     largest difference (``pytest -rA`` shows it) for the port's parity
