@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
-    python3 chip_smoke.py --profile  # also torch.profiler windows (a batch, text and extraction encodes)
+    python3 chip_smoke.py --profile  # also torch.profiler windows (phases 7, 11, 13, 14)
 
 Phases, in order; any failure ends the script with a non-zero exit code
 and without the final result line:
@@ -76,7 +76,24 @@ and without the final result line:
    K2 against its plain version at (128, 128, 128, 64); ``reproduce
    --rehearsal`` with each gate's wall time, and ``--dry-run`` on the card
    against the CPU; the classify CLI serving ``--adapter-checkpoint`` from
-   a short training run, the card against the CPU.
+   a short training run, the card against the CPU;
+14. phrase grounding at full width through ``cli/ground.py`` (a
+   reference-format BioViL ResNet-50 checkpoint of seeded random weights,
+   the BERT-base snapshot directory, a 390x320 PNG at resize 512 / crop
+   480: a 15 x 15 patch grid), the query's wall time (p50 of 5) split into
+   host load and preprocess, image forward, text encode, smoothing and
+   resize; fp32 (TF32 off) the card against its own CPU (embeddings and
+   map 2e-4, score 1e-4), bf16 against fp32 (patch cos > 0.999); K1, K2
+   and K3 launch no time on the grounding path; at 512^2 in fp32 dilated
+   ResNet-50 (False, False, True) and ResNet-18 the card against its CPU,
+   the space-to-depth stem against the standard stem (2e-4 of the largest
+   feature), int8 sums of dilated convs equal to the CPU's; the two stems
+   timed in turns at (128, 512, 512, 1) bf16; the native store at the
+   reference's scale (191,027 x 128, 5 labels): write, open, a shuffled
+   epoch at batch 6144 against the numpy batcher, and a joint run (bs 6144,
+   eval bs 1024, 2 epochs, unshuffled, per-batch steps) over the store bit
+   for bit the run over the in-memory dataset, K1 launched once an eval
+   batch, the C++ batcher serving.
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -87,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import http.client
 import io
 import json
@@ -995,10 +1013,36 @@ def reference_state_dict(model) -> dict:
     return {k: v.detach().cpu().clone() for k, v in sd.items()}
 
 
+def write_cxr_bert_files(model, tmp: Path):
+    """The port's CXR-BERT in the reference's formats under ``tmp``: a
+    ``torch.save`` state dict (``cxr_bert.pt``) with ``vocab.txt``, and an HF
+    snapshot directory (``snapshot/``: ``config.json``, ``pytorch_model.bin``,
+    ``vocab.txt``).  Returns (vocab path, snapshot dir)."""
+    import shutil
+
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import write_test_vocab
+
+    torch.save(reference_state_dict(model), tmp / "cxr_bert.pt")
+    vocab = write_test_vocab(tmp / "vocab.txt")
+    snap = tmp / "snapshot"
+    snap.mkdir()
+    dims = model.dims
+    (snap / "config.json").write_text(json.dumps(dict(
+        vocab_size=dims.vocab_size, hidden_size=dims.hidden_size,
+        num_hidden_layers=dims.num_layers, num_attention_heads=dims.num_heads,
+        intermediate_size=dims.intermediate_size,
+        max_position_embeddings=dims.max_position_embeddings,
+        type_vocab_size=dims.type_vocab_size, projection_size=dims.projection_size)))
+    shutil.copy(tmp / "cxr_bert.pt", snap / "pytorch_model.bin")
+    shutil.copy(vocab, snap / "vocab.txt")
+    return vocab, snap
+
+
 def bank_from_weights(model, images, results):
     """The serving CLI builds its bank from BERT-base weights in the
     reference's formats, on the card, and serves a batch with it."""
-    import shutil
     import tempfile
 
     import numpy as np
@@ -1012,25 +1056,11 @@ def bank_from_weights(model, images, results):
     from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
         fused_pairwise_cosine,
     )
-    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import write_test_vocab
 
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        sd = reference_state_dict(model)
-        torch.save(sd, tmp / "cxr_bert.pt")
-        vocab = write_test_vocab(tmp / "vocab.txt")
-        snap = tmp / "snapshot"
-        snap.mkdir()
-        dims = model.dims
-        (snap / "config.json").write_text(json.dumps(dict(
-            vocab_size=dims.vocab_size, hidden_size=dims.hidden_size,
-            num_hidden_layers=dims.num_layers, num_attention_heads=dims.num_heads,
-            intermediate_size=dims.intermediate_size,
-            max_position_embeddings=dims.max_position_embeddings,
-            type_vocab_size=dims.type_vocab_size, projection_size=dims.projection_size)))
-        shutil.copy(tmp / "cxr_bert.pt", snap / "pytorch_model.bin")
-        shutil.copy(vocab, snap / "vocab.txt")
+        vocab, snap = write_cxr_bert_files(model, tmp)
         p = argparse.ArgumentParser()
         classify.add_classifier_args(p)
         routes = {"checkpoint": ["--cxr-bert-checkpoint", str(tmp / "cxr_bert.pt"),
@@ -1928,13 +1958,390 @@ def extraction(model, results, profile: bool = False) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phrase grounding, the rest of the image model surface, the native store
+# ----------------------------------------------------------------------
+GROUND_HW = (390, 320)  # CheXpert-small's common geometry (rows, columns)
+GROUND_FLAGS = ["--resize", "512", "--crop", "480"]  # the CLI's defaults: a 15 x 15 patch grid
+GROUND_QUERY = "There is no pleural effusion"
+GROUND_REPEATS = 5
+MAP_ATOL = 2e-4  # the ResNet bar: patch embeddings, the map
+GROUND_SCORE_ATOL = 1e-4
+SURFACE_ATOL = 2e-4  # the ResNet bar, of the largest |feature| (random trunks grow to O(100))
+STEM_SHAPE = (128, 512, 512, 1)  # the extraction batch, grayscale
+NATIVE_BS = 6144
+
+
+def biovil_reference_state_dict(model) -> dict:
+    """The port's BioViL image model under the reference's
+    ``ImageModel`` keys (``encoder.encoder.*``, ``projector.model.{0,1,3}``)."""
+    bn_keys = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+    sd = {}
+    for key, value in model.state_dict().items():
+        parts = key.split(".")
+        if parts[0] == "encoder":
+            parts = ["encoder", "encoder", *parts[1:]]
+            parts = [{"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(q, q)
+                     for q in parts]
+        else:
+            parts = ["projector", "model", {"conv1": "0", "bn": "1", "conv2": "3",
+                                            "conv2_bias": "3"}[parts[1]], *parts[2:]]
+            if key.endswith("conv2_bias"):
+                parts.append("bias")
+        if parts[-1] in bn_keys:
+            parts[-1] = bn_keys[parts[-1]]
+        sd[".".join(parts)] = value.detach().cpu().clone()
+    return sd
+
+
+def write_cxr_png(path: Path, seed: int = 21) -> Path:
+    """A CheXpert-like 8-bit grayscale PNG at CheXpert-small's geometry."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = GROUND_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = 110 + 60 * np.sin(xx / 23) * np.cos(yy / 31) + rng.normal(0, 20, size=(h, w))
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8), mode="L").save(path)
+    return path
+
+
+def grounding_split(engine, image: Path) -> dict:
+    """One grounding query in the order ``get_score_and_map_from_raw_data``
+    runs it, each part timed: host load and preprocess, the image forward
+    (CUDA events, and the host clock to its readback), the text encode
+    (host clock; it returns numpy), the similarity, smoothing and resize."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    img, size = engine.image_engine.load_and_transform_input_image(image)
+    t1 = time.perf_counter()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    global_emb, patches = engine.image_engine.embed(img)
+    end.record()
+    global_emb.cpu()
+    t2 = time.perf_counter()
+    txt = engine.text_engine.get_embeddings_from_prompt([GROUND_QUERY], normalize=False)[0]
+    t3 = time.perf_counter()
+    engine._map_from(patches, size, txt / max(np.linalg.norm(txt), 1e-12))
+    t4 = time.perf_counter()
+    return {"load_preprocess_ms": 1e3 * (t1 - t0), "image_forward_event_ms": start.elapsed_time(end),
+            "image_forward_host_ms": 1e3 * (t2 - t1), "text_encode_ms": 1e3 * (t3 - t2),
+            "smooth_resize_ms": 1e3 * (t4 - t3)}
+
+
+def grounding(bert, results, profile: bool = False) -> None:
+    """(a) the grounding CLI at full width: a reference-format BioViL
+    ResNet-50 checkpoint (seeded random weights) and the BERT-base snapshot
+    directory, a 390x320 PNG at resize 512 / crop 480; the query's wall time
+    and its split (and, with ``profile``, one query under the profiler);
+    (b) fp32 (TF32 off) the card against its own CPU, bf16 against fp32;
+    (c) K1-K3 launch no time on the grounding path."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import ground
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        init_biovil_image_model,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.vlp.engine import (
+        ImageTextInferenceEngine,
+    )
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ground_") as tmp:
+        tmp = Path(tmp)
+        _, snap = write_cxr_bert_files(bert, tmp)
+        image = init_biovil_image_model(torch.Generator().manual_seed(0))
+        torch.save(biovil_reference_state_dict(image), tmp / "biovil.pt")
+        png = write_cxr_png(tmp / "cxr.png")
+        flags = ["--image", str(png), "--query", GROUND_QUERY, "--biovil-checkpoint",
+                 str(tmp / "biovil.pt"), "--cxr-bert-snapshot", str(snap), *GROUND_FLAGS]
+        zero_counts()  # the grounding path: the CLI, then the timed queries
+        printout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printout):
+            score, sim_map = ground.main([*flags, "--save-map", str(tmp / "map.npy")])
+        out["cli_wall_s"] = time.perf_counter() - t0
+        saved = np.load(tmp / "map.npy")
+        out.update(score=score, map_shape=list(sim_map.shape),
+                   map_nan=int(np.isnan(sim_map).sum()),
+                   map_finite_range=[float(np.nanmin(sim_map)), float(np.nanmax(sim_map))],
+                   cli_printout=printout.getvalue().strip().splitlines())
+        check(np.array_equal(saved, sim_map, equal_nan=True), "--save-map wrote another map")
+        check(sim_map.shape == GROUND_HW and 0 < out["map_nan"] < sim_map.size
+              and bool(np.isfinite(score)), f"grounding output: {out}")
+        args = ground.build_parser().parse_args(flags)
+        card = ground.build_engine(args)
+        card.get_score_and_map_from_raw_data(png, GROUND_QUERY)  # warm-up
+        walls, splits = [], []
+        for _ in range(GROUND_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card.get_score_and_map_from_raw_data(png, GROUND_QUERY)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        for _ in range(GROUND_REPEATS):
+            splits.append(grounding_split(card, png))
+        out["query_wall_ms_p50"] = statistics.median(walls)
+        out["query_wall_ms"] = walls
+        out["split_ms_p50"] = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+        if profile:
+            profile_window("one grounding query",
+                           lambda: card.get_score_and_map_from_raw_data(png, GROUND_QUERY), results)
+        out["launches"] = read_counts()
+        log(f"  (a) ground CLI: score {score:.6f}, map {sim_map.shape} with {out['map_nan']} NaN; "
+            f"one query p50 {out['query_wall_ms_p50']:.2f} ms of {GROUND_REPEATS}, split p50 "
+            f"{json.dumps(out['split_ms_p50'])}")
+        check(all(v == 0 for v in out["launches"].values()),
+              f"a kernel launched on the grounding path: {out['launches']}")
+        log(f"  (c) launches on the grounding path: {json.dumps(out['launches'])}")
+
+        cpu = ground.build_engine(ground.build_parser().parse_args([*flags, "--device", "cpu"]))
+        b = {}
+        img, _ = card.image_engine.load_and_transform_input_image(png)
+        for name, eng in (("card", card), ("cpu", cpu)):
+            g, pt = (t.cpu().numpy() for t in eng.image_engine.embed(img))
+            sc, mp = eng.get_score_and_map_from_raw_data(png, GROUND_QUERY)
+            b[name] = (g, pt, sc, mp)
+        (g, pt, sc, mp), (g0, pt0, sc0, mp0) = b["card"], b["cpu"]
+        ok = ~np.isnan(mp0)
+        bf16 = ImageTextInferenceEngine(card.image_engine.model, card.text_engine,
+                                        dtype=torch.bfloat16, device="cuda")
+        low = bf16.image_engine.embed(img)[1].cpu().numpy()
+        cos = np.sum(low * pt, -1).ravel()  # both L2-normalised
+        out["card_vs_cpu"] = dict(
+            global_max_abs=float(np.abs(g - g0).max()), patches_max_abs=float(np.abs(pt - pt0).max()),
+            map_max_abs=float(np.abs(mp[ok] - mp0[ok]).max()), score_abs=abs(sc - sc0),
+            same_nan=bool(np.array_equal(np.isnan(mp), np.isnan(mp0))),
+            bf16_vs_fp32_patch_min_cos=float(cos.min()))
+        log(f"  (b) fp32 (TF32 off), the card against its CPU; bf16 against fp32: "
+            f"{json.dumps(out['card_vs_cpu'])}")
+        c = out["card_vs_cpu"]
+        check(max(c["global_max_abs"], c["patches_max_abs"], c["map_max_abs"]) <= MAP_ATOL
+              and c["same_nan"], f"grounding, the card against its CPU: {c}")
+        check(c["score_abs"] <= GROUND_SCORE_ATOL, f"grounding score, card vs CPU: {c}")
+        check(c["bf16_vs_fp32_patch_min_cos"] > EMB_COS, f"grounding bf16 vs fp32: {c}")
+    results["grounding"] = out
+
+
+def scaled_err(got, ref) -> tuple:
+    """(max |got - ref|, the same over max(1, max |ref|))."""
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(got - ref).max())
+    return err, err / max(1.0, float(np.abs(ref).max()))
+
+
+def model_surface(results) -> None:
+    """(d) at 512^2, fp32 (TF32 off): dilated ResNet-50 and ResNet-18, the
+    card against its CPU; the space-to-depth stem against the standard stem
+    on the same grayscale-folded weights; int8 sums of dilated convs, the
+    card against the CPU's exact path; the two stems timed in turns."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.models import resnet as tr
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        biovil_image_forward,
+        fold_grayscale_conv1,
+        init_biovil_image_model,
+        quantize_biovil_int8,
+        space_to_depth_stem,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops.quant import conv_int8_sums
+
+    model = init_biovil_image_model(torch.Generator().manual_seed(0))  # on the CPU
+    out = {}
+    g = torch.Generator().manual_seed(17)
+    x = torch.rand(1, 512, 512, 3, generator=g)
+    dil = (False, False, True)
+    r18 = tr.init_resnet18(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for name, fwd, net in (
+            ("resnet50 dilation (F, F, T)",
+             lambda net, t: tr.resnet50_forward(net, t, replace_stride_with_dilation=dil),
+             model.encoder),
+            ("resnet18", tr.resnet18_forward, r18),
+        ):
+            cpu = fwd(net, x)
+            card = fwd(net.cuda(), x.cuda()).cpu()
+            net.cpu()
+            err, rel = scaled_err(card, cpu)
+            out[name] = dict(shape=list(card.shape), max_abs=err, max_abs_over_max_feature=rel,
+                             max_feature=float(cpu.abs().max()))
+            check(rel <= SURFACE_ATOL and bool(torch.isfinite(card).all()),
+                  f"{name}, the card against its CPU: {out[name]}")
+        check(out["resnet50 dilation (F, F, T)"]["shape"] == [1, 32, 32, 2048],
+              "the dilated x4 grid is not 32 x 32")
+        folded = fold_grayscale_conv1(model).cuda()
+        s2d = space_to_depth_stem(folded)
+        gray = x[..., :1].cuda()
+        std_out = biovil_image_forward(folded, gray)
+        s2d_out = biovil_image_forward(s2d, gray)
+        stem = {}
+        for key in ("projected_global_embedding", "projected_patch_embeddings"):
+            err, rel = scaled_err(getattr(s2d_out, key).cpu(), getattr(std_out, key).cpu())
+            stem[key] = dict(max_abs=err, max_abs_over_max=rel)
+            check(rel <= SURFACE_ATOL, f"s2d stem vs the standard stem, {key}: {stem[key]}")
+        out["s2d_vs_standard_stem"] = stem
+        enc = quantize_biovil_int8(model).encoder
+        sums = {}
+        for name, conv, shape, kw in (
+            ("layer4.0.conv2 3x3, stride 2 -> 1", enc.layer4[0].conv2, (1, 512, 32, 32),
+             dict(stride=1, padding=1, dilation=1)),
+            ("layer4.1.conv2 3x3, dilation 2", enc.layer4[1].conv2, (1, 512, 32, 32),
+             dict(stride=1, padding=2, dilation=2)),
+        ):
+            xq = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+            xq = xq.contiguous(memory_format=torch.channels_last)
+            want = conv_int8_sums(xq, conv.kernel_q, kw["stride"], kw["padding"], kw["dilation"])
+            got = conv_int8_sums(xq.cuda(), conv.kernel_q.cuda(), kw["stride"], kw["padding"],
+                                 kw["dilation"]).cpu()
+            sums[name] = dict(shape=list(want.shape), equal=bool(torch.equal(got, want)))
+            check(got.dtype == torch.int32 and sums[name]["equal"],
+                  f"int8 dilated conv {name}: the card's sums differ")
+        out["int8_dilated_sums"] = sums
+        log(f"  (d) model surface at 512^2: {json.dumps(out)}")
+        # the two stems at the extraction batch, bf16, in turns
+        b, h, w, _ = STEM_SHAPE
+        xs = torch.rand(b, 1, h, w, device="cuda", generator=torch.Generator(device="cuda")
+                        .manual_seed(3)).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        stems = {"standard 7x7/2": folded.encoder.conv1, "space-to-depth 4x4": s2d.encoder.conv1}
+        y_std, y_s2d = (tr.stem_conv_apply(c, xs) for c in stems.values())
+        same = scaled_err(y_s2d.float().cpu(), y_std.float().cpu())
+        times = alternating_ms({k: (lambda c=c: tr.stem_conv_apply(c, xs)) for k, c in stems.items()},
+                               rounds=5, iters=20)
+        bytes_moved = xs.numel() * 2 + y_std.numel() * 2
+        flops = 2 * y_std.numel() * 49
+        bound = max(bytes_moved / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+        out["stem_times_ms"] = dict(**times, shape=list(STEM_SHAPE), out_shape=list(y_std.shape),
+                                    bound_ms=bound, bf16_max_abs=same[0],
+                                    bf16_max_abs_over_max=same[1])
+        log(f"  (d) stems at {STEM_SHAPE} bf16, medians of 5 rounds in turns: "
+            f"{json.dumps(out['stem_times_ms'])}")
+        folded.cpu()
+    results["model_surface"] = out
+
+
+def native_store(bank, results) -> None:
+    """(e) the native store at the reference's scale (191,027 x 128 + 5
+    labels): write, open, one shuffled epoch at batch 6144 against the numpy
+    batcher in turns; a joint run (bs 6144, eval bs 1024, 2 epochs,
+    unshuffled, per-batch steps) over the store and over the same
+    in-memory dataset, bit-equal, with K1 scoring every eval batch and the
+    C++ batcher serving."""
+    import math
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from incremental_multimodal_medical_learning_ii_torch.data.native import (
+        NativeEmbeddingStore,
+        native_available,
+        native_build_error,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.data.store import (
+        EmbeddingDataset,
+        iterate_batches,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import joint_config
+
+    check(native_available(), f"the native store did not build: {native_build_error()}")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        tmp = Path(tmp)
+        training_data(tmp)
+        train, val = EmbeddingDataset.load(tmp / "train.npz"), EmbeddingDataset.load(tmp / "val.npz")
+        t0 = time.perf_counter()
+        store = NativeEmbeddingStore.write(tmp / "train.embstore", train)
+        out["write_s"] = time.perf_counter() - t0
+        store.close()
+        t0 = time.perf_counter()
+        store = NativeEmbeddingStore(tmp / "train.embstore")
+        out["open_s"] = time.perf_counter() - t0
+        val_store = NativeEmbeddingStore.write(tmp / "val.embstore", val)
+        out["file_bytes"] = (tmp / "train.embstore").stat().st_size
+        check(store.native and val_store.native and store.n == TRAIN_ROWS,
+              "the C++ runtime does not serve the store")
+
+        def native_epoch():
+            return sum(int(m.sum()) for _, _, m in store.iterate_batches(NATIVE_BS, shuffle=True,
+                                                                         seed=7))
+
+        def numpy_epoch():
+            return sum(int(m.sum()) for _, _, m in iterate_batches(
+                train, NATIVE_BS, shuffle=True, rng=np.random.default_rng(7)))
+
+        epochs = {"native": [], "numpy": []}
+        for r in range(3):
+            for name in (["native", "numpy"] if r % 2 == 0 else ["numpy", "native"]):
+                t0 = time.perf_counter()
+                rows = native_epoch() if name == "native" else numpy_epoch()
+                epochs[name].append(time.perf_counter() - t0)
+                check(rows == TRAIN_ROWS, f"{name} epoch served {rows} rows")
+        out["epoch_s"] = {k: statistics.median(v) for k, v in epochs.items()}
+        out["epoch_batches"] = math.ceil(TRAIN_ROWS / NATIVE_BS)
+
+        cfg = joint_config(batch_size=NATIVE_BS, eval_batch_size=EVAL_BS, epochs=2, lr=1e-4,
+                           shuffle_train=False, fused_epoch=False, plot_figures="off")
+        class Recorder:  # a writer that keeps every scalar
+            enabled = True
+
+            def __init__(self):
+                self.rows = []
+
+            def add_scalar(self, tag, value, step):
+                self.rows.append((tag, int(step), float(value)))
+
+        runs = {}
+        for name, (tr_data, va_data) in (("native", (store, val_store)), ("in-memory", (train, val))):
+            writer = Recorder()
+            rec = writer.rows
+            trainer = Trainer(cfg, bank, writer=writer, device="cuda")
+            if name == "native":
+                zero_counts()  # this slice's training path: the store's run
+            t0 = time.perf_counter()
+            aurocs = []
+            for epoch in (1, 2):
+                trainer.train(tr_data, epoch=epoch)
+                aurocs.append(trainer.validate(va_data, epoch, 2)["auroc_macro"])
+            wall = time.perf_counter() - t0
+            if name == "native":
+                out["launches"] = read_counts()
+            runs[name] = (rec, aurocs, wall)
+        (rec, aurocs, wall), (rec0, aurocs0, wall0) = runs["native"], runs["in-memory"]
+        eval_batches = 2 * math.ceil(VAL_ROWS / EVAL_BS)
+        out.update(run_wall_s={"native": wall, "in-memory": wall0}, aurocs=aurocs,
+                   losses=sum(t.endswith("Loss") for t, _, _ in rec),
+                   bit_equal=rec == rec0 and aurocs == aurocs0, expected_k1=eval_batches,
+                   native_available=native_available(), served_native=store.native)
+        log(f"  (e) native store: {json.dumps(out)}")
+        check(out["bit_equal"] and out["losses"] > 0,
+              "the runs over the store and over the in-memory dataset differ")
+        check(out["launches"]["fused_cosine"] == eval_batches,
+              f"K1 launched {out['launches']['fused_cosine']} times for {eval_batches} eval batches")
+        check(out["launches"]["fused_bottleneck"] == 0 and out["launches"]["flash_attention"] == 0,
+              "a kernel off the training path was launched")
+        store.close()
+        val_store.close()
+    results["native_store"] = out
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler windows over one served batch, one "
-                         "report-length text encode (flash and dense) and one extraction "
-                         "encode (K2 and cuDNN layer1)")
+                         "report-length text encode (flash and dense), one extraction "
+                         "encode (K2 and cuDNN layer1) and one grounding query")
     args = ap.parse_args(argv)
 
     if not (REPO / PACKAGE / "csrc").is_dir():
@@ -2019,6 +2426,12 @@ def main(argv=None) -> int:
         "path, the card against its CPU, the int8 trunk, the device encode with K2 against "
         "cuDNN, reproduce --rehearsal, serving --adapter-checkpoint")
     k2x = extraction(model, results, args.profile)
+    log("[14] phrase grounding through the CLI at full width (BioViL ResNet-50 at 480^2, "
+        "BERT-base), the card against its CPU; dilated ResNet-50, ResNet-18 and the "
+        "space-to-depth stem; the native store at the reference's scale")
+    grounding(bert, results, args.profile)
+    model_surface(results)
+    native_store(bank, results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]
@@ -2063,6 +2476,15 @@ def main(argv=None) -> int:
         ms=k2x["ms"], plain_ms=k2x["plain_ms"], bound_ms=k2x["bound_ms"],
         bound_by=k2x["bound_by"], library_ms=k2x["library_ms"],
         kernel_device_ms=k2x["kernel_device_ms"], tflops=k2x["tflops"]))
+    k1n = results["cosine_eval"][eval_names[0]]  # K1 at the eval shape of the store's run (14e)
+    kernels.append(dict(
+        name=f"fused_cosine (native store {eval_names[0]})", route="cuda",
+        source=f"{PACKAGE}/csrc/fused_cosine.cu",
+        replaces="incremental_multimodal_medical_learning_ii_tpu/ops/pallas_cosine.py:32",
+        launches=results["native_store"]["launches"]["fused_cosine"],
+        max_abs_err=k1n["max_abs_err"], ms=k1n["ms"], plain_ms=k1n["plain_ms"],
+        bound_ms=k1n["bound_ms"], bound_by=k1n["bound_by"], library_ms=k1n["library_ms"],
+        kernel_device_ms=k1n["kernel_device_ms"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

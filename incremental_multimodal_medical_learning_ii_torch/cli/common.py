@@ -44,11 +44,49 @@ def load_image_tower(args):
     raise SystemExit("--biovil-checkpoint or --biovil-npz required (or --random-weights)")
 
 
+def cxr_bert_engine(args, device):
+    """CXR-BERT behind a ``TextInferenceEngine`` on ``device``, from
+    --cxr-bert-snapshot, or --cxr-bert-checkpoint with --cxr-bert-vocab;
+    ``None`` when neither is given.  A half-given checkpoint/vocab pair and
+    a text tower that does not project into the 128-d joint space raise."""
+    snapshot = getattr(args, "cxr_bert_snapshot", None)
+    checkpoint = getattr(args, "cxr_bert_checkpoint", None)
+    vocab = getattr(args, "cxr_bert_vocab", None)
+    if not (snapshot or checkpoint or vocab):
+        return None
+    from incremental_multimodal_medical_learning_ii_torch.models import convert
+    from incremental_multimodal_medical_learning_ii_torch.text.engine import TextInferenceEngine
+    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import PromptTokenizer
+
+    if snapshot:
+        model, tokenizer = convert.load_cxr_bert_snapshot(snapshot)
+        if tokenizer is None:
+            raise SystemExit(f"{snapshot} has no vocab.txt")
+    elif checkpoint and vocab:
+        model = convert.load_cxr_bert_checkpoint(checkpoint,
+                                                 num_heads=getattr(args, "cxr_bert_num_heads", None))
+        tokenizer = PromptTokenizer(vocab)
+    else:
+        # a half-given pair must not fall back to the synthetic encoder: the
+        # run would finish exit-0 against random text embeddings
+        missing = "--cxr-bert-vocab" if checkpoint else "--cxr-bert-checkpoint"
+        raise SystemExit(
+            f"--cxr-bert-checkpoint and --cxr-bert-vocab go together; "
+            f"{missing} is missing (or pass --cxr-bert-snapshot instead)"
+        )
+    if model.dims.projection_size != 128:
+        # the text embeddings live in the image tower's 128-d joint space
+        raise SystemExit(
+            f"text checkpoint projects to {model.dims.projection_size}-d but the "
+            f"joint space is 128-d; this checkpoint is not a BioViL-paired CXR-BERT"
+        )
+    return TextInferenceEngine(model, tokenizer, device=device)
+
+
 def build_bank(args, device):
     """The prompt bank: --bank if given; else the prompts ``create_prompts``
-    selects, encoded by CXR-BERT on ``device`` (--cxr-bert-snapshot, or
-    --cxr-bert-checkpoint with --cxr-bert-vocab) or, without weights, by
-    the synthetic encoder."""
+    selects, encoded by CXR-BERT on ``device`` (:func:`cxr_bert_engine`)
+    or, without weights, by the synthetic encoder."""
     from incremental_multimodal_medical_learning_ii_torch.text.bank import (
         build_prompt_bank,
         load_prompt_bank,
@@ -69,50 +107,12 @@ def build_bank(args, device):
         train_logit_diff=train_logit_diff,
         seed=args.seed,
     )
-    if args.cxr_bert_snapshot:
-        from incremental_multimodal_medical_learning_ii_torch.models.convert import (
-            load_cxr_bert_snapshot,
-        )
-        from incremental_multimodal_medical_learning_ii_torch.text.engine import (
-            TextInferenceEngine,
-        )
-
-        model, tokenizer = load_cxr_bert_snapshot(args.cxr_bert_snapshot)
-        if tokenizer is None:
-            raise SystemExit(f"{args.cxr_bert_snapshot} has no vocab.txt")
-        encode = TextInferenceEngine(model, tokenizer, device=device).encode_fn(normalize=False)
-    elif args.cxr_bert_checkpoint and args.cxr_bert_vocab:
-        from incremental_multimodal_medical_learning_ii_torch.models.convert import (
-            load_cxr_bert_checkpoint,
-        )
-        from incremental_multimodal_medical_learning_ii_torch.text.engine import (
-            TextInferenceEngine,
-        )
-        from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import (
-            PromptTokenizer,
-        )
-
-        model = load_cxr_bert_checkpoint(args.cxr_bert_checkpoint,
-                                         num_heads=getattr(args, "cxr_bert_num_heads", None))
-        encode = TextInferenceEngine(model, PromptTokenizer(args.cxr_bert_vocab),
-                                     device=device).encode_fn(normalize=False)
-    elif args.cxr_bert_checkpoint or args.cxr_bert_vocab:
-        # a half-given pair must not fall back to the synthetic encoder: the
-        # run would finish exit-0 against a random bank
-        missing = "--cxr-bert-vocab" if args.cxr_bert_checkpoint else "--cxr-bert-checkpoint"
-        raise SystemExit(
-            f"--cxr-bert-checkpoint and --cxr-bert-vocab go together; "
-            f"{missing} is missing (or pass --cxr-bert-snapshot instead)"
-        )
+    engine = cxr_bert_engine(args, device)
+    if engine is not None:
+        encode = engine.encode_fn(normalize=False)
     else:
         print("[warn] no CXR-BERT checkpoint given; using synthetic prompt encoder")
-        encode, model = synthetic_encode_fn(seed=args.seed), None
-    if model is not None and model.dims.projection_size != 128:
-        # the bank lives in the image tower's 128-d joint space
-        raise SystemExit(
-            f"text checkpoint projects to {model.dims.projection_size}-d but the "
-            f"joint space is 128-d; this checkpoint is not a BioViL-paired CXR-BERT"
-        )
+        encode = synthetic_encode_fn(seed=args.seed)
     return build_prompt_bank(encode, prompts, CHEXPERT_COMPETITION_TASKS,
                              train_logit_diff=train_logit_diff)
 

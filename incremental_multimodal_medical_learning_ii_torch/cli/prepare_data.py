@@ -3,20 +3,18 @@ the JAX package's ``cli/prepare_data.py``).
 
 Covers the reference's post-extraction plumbing: shard gluing
 (``CSV_reformatting/glue_dataset.py:33-37``) and the head/tail train split
-(``splitTrainingEmbedding.py:17-29``: 175000 + 16027).  ``--native`` (the
-mmap store for the C++ batcher) is not yet ported.
+(``splitTrainingEmbedding.py:17-29``: 175000 + 16027), plus the native
+mmap store for the C++ batcher (``--native``: ``<out>.embstore``,
+``data/native.py``).
 
     python -m incremental_multimodal_medical_learning_ii_torch.cli.prepare_data \\
-        --shards embeddings/train --out data/train.npz [--split-head 175000]
+        --shards embeddings/train --out data/train.npz [--split-head 175000] [--native]
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-
-NATIVE_NOT_PORTED = ("not yet ported: --native needs the native mmap store "
-                     "(ROADMAP Queue 1, slice 4c)")
 
 
 def main(argv=None) -> None:
@@ -29,10 +27,9 @@ def main(argv=None) -> None:
     p.add_argument("--out", required=True, help="output .npz path")
     p.add_argument("--split-head", type=int, default=0,
                    help="also write <out>.head.npz / <out>.tail.npz at this row")
-    p.add_argument("--native", action="store_true", help="the native mmap store: not yet ported")
+    p.add_argument("--native", action="store_true",
+                   help="also write the native mmap store (<out>.embstore)")
     args = p.parse_args(argv)
-    if args.native:
-        raise NotImplementedError(NATIVE_NOT_PORTED)
 
     from incremental_multimodal_medical_learning_ii_torch.data.store import (
         EmbeddingDataset,
@@ -56,6 +53,15 @@ def main(argv=None) -> None:
         head.save(out.with_suffix(".head.npz"))
         tail.save(out.with_suffix(".tail.npz"))
         print(f"split: {len(head)} head / {len(tail)} tail")
+
+    if args.native:
+        from incremental_multimodal_medical_learning_ii_torch.data.native import (
+            NativeEmbeddingStore,
+        )
+
+        store = NativeEmbeddingStore.write(out.with_suffix(".embstore"), ds)
+        print(f"native store: {store.path} ({store.n} rows)")
+        store.close()
 
 
 if __name__ == "__main__":

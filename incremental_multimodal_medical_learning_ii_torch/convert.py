@@ -6,6 +6,13 @@ with numpy (or array-like) leaves, and returns the port's counterpart:
 * a BioViL image tree ``{"encoder": ..., "projector": ...}`` becomes a
   :class:`BioViLImageModel` (conv kernels HWIO -> OIHW; BN
   ``{scale, bias, mean, var}`` kept by name; the projector's conv2 bias);
+  a space-to-depth stem's (4, 4, 4C, N) kernel becomes (N, 4C, 4, 4);
+* a bare trunk tree ``{"conv1", "bn1", "layer1".."layer4"}`` becomes a
+  :class:`ResNet50`, or a :class:`ResNet18` when its blocks have no
+  ``conv3``;
+* a multitask-head tree (``models/heads.py``: ``{"w", "b"}`` or the MLP's
+  ``{"w1", "bn_*", "w2", "b2"}``) becomes a :class:`MultitaskHead`, its
+  stacked arrays copied as they are;
 * an adapter tree ``{"image" | "text" | "shared": {"dense1": {"kernel",
   "bias"}, ...}}`` becomes an ``nn.ModuleDict`` of adapters (``kernel``
   (in, out) -> ``weight`` (out, in));
@@ -42,11 +49,17 @@ from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import
     BioViLImageModel,
 )
 from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import BertDims, CXRBert
+from incremental_multimodal_medical_learning_ii_torch.models.heads import (
+    LINEAR_PARAMS,
+    MLP_PARAMS,
+    MultitaskHead,
+)
 from incremental_multimodal_medical_learning_ii_torch.models.resnet import (
     EXPANSION,
     Bottleneck,
     Conv2d,
     FrozenBatchNorm,
+    ResNet18,
     ResNet50,
 )
 
@@ -71,10 +84,9 @@ def _set_bn(bn: FrozenBatchNorm, p: Mapping[str, Any]) -> None:
 
 def _load_layer(layer, blocks: Sequence[Mapping[str, Any]]) -> None:
     for block, p in zip(layer, blocks, strict=True):
-        for name in ("conv1", "conv2", "conv3"):
-            _set_conv(getattr(block, name), p[name])
-        for name in ("bn1", "bn2", "bn3"):
-            _set_bn(getattr(block, name), p[name])
+        for i in range(1, block.n_convs + 1):
+            _set_conv(getattr(block, f"conv{i}"), p[f"conv{i}"])
+            _set_bn(getattr(block, f"bn{i}"), p[f"bn{i}"])
         if block.downsample_conv is not None:
             _set_conv(block.downsample_conv, p["downsample_conv"])
             _set_bn(block.downsample_bn, p["downsample_bn"])
@@ -93,8 +105,12 @@ def layer_from_jax(blocks: Sequence[Mapping[str, Any]], cin: int, width: int,
     return layer.eval()
 
 
-def _resnet_from_jax(tree: Mapping[str, Any]) -> ResNet50:
-    model = ResNet50(in_channels=np.shape(tree["conv1"]["kernel"])[2])  # 1 once grayscale-folded
+def _resnet_from_jax(tree: Mapping[str, Any]):
+    kh, _, cin, _ = np.shape(tree["conv1"]["kernel"])  # cin 1 once grayscale-folded
+    if "conv3" in tree["layer1"][0]:
+        model = ResNet50(in_channels=cin, stem_kernel=kh)  # kh 4: the space-to-depth stem
+    else:
+        model = ResNet18(in_channels=cin)
     _set_conv(model.conv1, tree["conv1"])
     _set_bn(model.bn1, tree["bn1"])
     for li in range(1, 5):
@@ -104,7 +120,11 @@ def _resnet_from_jax(tree: Mapping[str, Any]) -> ResNet50:
 
 @torch.no_grad()
 def _biovil_from_jax(tree: Mapping[str, Any]) -> BioViLImageModel:
-    model = BioViLImageModel(_resnet_from_jax(tree["encoder"]))
+    encoder = _resnet_from_jax(tree["encoder"])
+    if not isinstance(encoder, ResNet50):
+        raise ValueError("a BioViL image model has a ResNet-50 trunk (its projector takes 2048 "
+                         "features)")
+    model = BioViLImageModel(encoder)
     proj = tree["projector"]
     _set_conv(model.projector.conv1, proj["conv1"])
     _set_bn(model.projector.bn, proj["bn"])
@@ -163,11 +183,28 @@ def _bert_from_jax(tree: Mapping[str, Any], dims) -> CXRBert:
     return model
 
 
+@torch.no_grad()
+def _head_from_jax(tree: Mapping[str, Any]) -> MultitaskHead:
+    if "w" in tree:
+        t, d, c = np.shape(tree["w"])
+        head = MultitaskHead(d, c, t)
+    else:
+        t, d, h = np.shape(tree["w1"])
+        head = MultitaskHead(d, np.shape(tree["w2"])[2], t, hidden_dim=h)
+    for name, value in tree.items():
+        getattr(head, name).copy_(_t(value))
+    return head.eval()
+
+
 def params_from_jax(tree: Mapping[str, Any], dims: Optional[Any] = None):
     """A JAX parameter tree (numpy leaves) -> the port's module(s);
     ``dims`` (a ``BertDims``) for a CXR-BERT tree."""
     if "encoder" in tree and "projector" in tree:
         return _biovil_from_jax(tree)
+    if "conv1" in tree and "layer4" in tree:
+        return _resnet_from_jax(tree)
+    if set(tree) in (set(LINEAR_PARAMS), set(MLP_PARAMS)):
+        return _head_from_jax(tree)
     if "embeddings" in tree and "layers" in tree:
         if dims is None:
             raise ValueError("a CXR-BERT tree needs dims= (the head count is not in the shapes)")
@@ -196,9 +233,9 @@ def _bn_to_jax(bn: FrozenBatchNorm) -> dict:
     return {name: _np(getattr(bn, name)) for name in ("scale", "bias", "mean", "var")}
 
 
-def _block_to_jax(block: Bottleneck) -> dict:
+def _block_to_jax(block) -> dict:
     out = {}
-    for i in (1, 2, 3):
+    for i in range(1, block.n_convs + 1):
         out[f"conv{i}"] = _conv_to_jax(getattr(block, f"conv{i}"))
         out[f"bn{i}"] = _bn_to_jax(getattr(block, f"bn{i}"))
     if block.downsample_conv is not None:
@@ -207,7 +244,7 @@ def _block_to_jax(block: Bottleneck) -> dict:
     return out
 
 
-def _resnet_to_jax(model: ResNet50) -> dict:
+def _resnet_to_jax(model) -> dict:
     out = {"conv1": _conv_to_jax(model.conv1), "bn1": _bn_to_jax(model.bn1)}
     for li in range(1, 5):
         out[f"layer{li}"] = [_block_to_jax(b) for b in getattr(model, f"layer{li}")]
@@ -255,6 +292,7 @@ def _bert_to_jax(model: CXRBert) -> dict:
 def params_to_jax(module: nn.Module):
     """The inverse of :func:`params_from_jax`: a port module -> the JAX
     package's parameter tree with numpy leaves (a :class:`BioViLImageModel`,
+    a :class:`ResNet50` or :class:`ResNet18` trunk, a :class:`MultitaskHead`,
     a :class:`CXRBert`, one adapter or an ``nn.ModuleDict`` of adapters).
     ``save_params_npz`` of the result is the JAX package's bundle format."""
     if isinstance(module, BioViLImageModel):
@@ -264,6 +302,11 @@ def params_to_jax(module: nn.Module):
         return {"encoder": _resnet_to_jax(module.encoder),
                 "projector": {"conv1": _conv_to_jax(proj.conv1), "bn": _bn_to_jax(proj.bn),
                               "conv2": conv2}}
+    if isinstance(module, (ResNet50, ResNet18)):
+        return _resnet_to_jax(module)
+    if isinstance(module, MultitaskHead):
+        names = MLP_PARAMS if module.mlp else LINEAR_PARAMS
+        return {name: _np(getattr(module, name)) for name in names}
     if isinstance(module, CXRBert):
         return _bert_to_jax(module)
     if isinstance(module, (MLPAdapter, LinearAdapter)):

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``models/biovil_image.py``.  The trunk's
 x4 feature map goes through a 1x1-conv projector (Conv 2048->128 no-bias,
 BN, ReLU, Conv 128->128 with bias) giving per-patch 128-d embeddings; the
 global embedding is their mean over the grid, in fp32 and NOT
-L2-normalised.
+L2-normalised.  :func:`get_patchwise_projected_embeddings` gives the
+patch grid the phrase-grounding engine uses (``model.py:160-174``),
+optionally L2-normalised over the feature axis.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from incremental_multimodal_medical_learning_ii_torch.models.resnet import (
     conv_apply,
     init_conv_,
     init_resnet50,
+    is_space_to_depth_stem,
     resnet50_forward,
+    space_to_depth_stem_kernel,
 )
 from incremental_multimodal_medical_learning_ii_torch.utils.config import JOINT_FEATURE_SIZE
 
@@ -72,15 +76,39 @@ def fold_grayscale_conv1(model: BioViLImageModel) -> BioViLImageModel:
     The reference feeds three identical copies of the grayscale image, so
     ``conv1(repeat(x, 3), W) == conv1(x, sum_c W)``: summing the (64, 3, 7, 7)
     kernel over its input-channel axis keeps images (B, H, W, 1), a third
-    of the traffic into conv1, with the same math (fp32 kernel sum)."""
+    of the traffic into conv1, with the same math (fp32 kernel sum).
+    A space-to-depth stem's input channels are s2d blocks, not copies of
+    one plane: fold before :func:`space_to_depth_stem`."""
     w = model.encoder.conv1.weight
     if w.shape[1] == 1:
         return model
+    if is_space_to_depth_stem(model.encoder.conv1):
+        if w.shape[1] == 4:
+            return model  # folded before the space-to-depth transform
+        raise ValueError("cannot grayscale-fold a 3-channel space-to-depth stem kernel; "
+                         "apply fold_grayscale_conv1 BEFORE space_to_depth_stem")
     folded = copy.deepcopy(model)
     folded.encoder.conv1.weight = nn.Parameter(
         torch.sum(w.to(torch.float32), dim=1, keepdim=True), requires_grad=False
     )
     return folded
+
+
+@torch.no_grad()
+def space_to_depth_stem(model: BioViLImageModel) -> BioViLImageModel:
+    """A copy of ``model`` whose stem is the exact space-to-depth form: a
+    4x4 stride-1 conv over 2x2 space-to-depth input in place of the 7x7/2
+    conv (``models/resnet.py::space_to_depth_stem_kernel``).  The forward
+    chooses it from the kernel's shape.  Compose after
+    :func:`fold_grayscale_conv1`."""
+    conv1 = model.encoder.conv1
+    if is_space_to_depth_stem(conv1):
+        return model
+    out = copy.deepcopy(model)
+    w4 = space_to_depth_stem_kernel(conv1.weight.to(torch.float32))
+    out.encoder.conv1 = Conv2d(w4.shape[1], w4.shape[0], 4).to(w4.device)
+    out.encoder.conv1.weight.copy_(w4)
+    return out
 
 
 def quantize_biovil_int8(model: BioViLImageModel) -> BioViLImageModel:
@@ -91,6 +119,10 @@ def quantize_biovil_int8(model: BioViLImageModel) -> BioViLImageModel:
     is quantized already."""
     from incremental_multimodal_medical_learning_ii_torch.ops.quant import quantize_resnet_int8
 
+    if is_space_to_depth_stem(model.encoder.conv1):
+        # the int8 conv would run the 4x4 kernel with the 7x7/2 geometry
+        raise ValueError("int8 quantization is incompatible with the space-to-depth stem; "
+                         "quantize the standard model, or skip space_to_depth_stem")
     out = BioViLImageModel(quantize_resnet_int8(model.encoder))
     out.projector = copy.deepcopy(model.projector)
     return out.eval()
@@ -150,3 +182,17 @@ def biovil_image_forward(
         projected_patch_embeddings=projected32,
         img_embedding=pooled,
     )
+
+
+def get_patchwise_projected_embeddings(model: BioViLImageModel, images_nhwc: torch.Tensor,
+                                       normalize: bool,
+                                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, h, w, 128) fp32 patch embeddings, optionally L2-normalised over
+    the feature axis (the norm clamped at 1e-12)."""
+    patches = biovil_image_forward(model, images_nhwc, dtype=dtype).projected_patch_embeddings
+    return normalize_patches(patches) if normalize else patches
+
+
+def normalize_patches(patches: torch.Tensor) -> torch.Tensor:
+    norm = torch.linalg.vector_norm(patches, dim=-1, keepdim=True)
+    return patches / torch.clamp_min(norm, 1e-12)

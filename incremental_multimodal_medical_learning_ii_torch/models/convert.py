@@ -10,8 +10,9 @@
   module's own reader (:func:`read_safetensors`).
 * The BioViL image model: ``biovil_image_resnet50_proj_size_128.pt``
   (keys ``encoder.encoder.*`` for the ResNet-50 trunk and
-  ``projector.model.*`` for the 1x1-conv MLP).  ResNet-18 trunks are not
-  ported yet.
+  ``projector.model.*`` for the 1x1-conv MLP).  BioViL checkpoints exist
+  with a ResNet-50 trunk only; a torchvision ResNet-18 state dict loads
+  on its own (:func:`convert_resnet18_state_dict`).
 * The reference's adapter checkpoints, whole pickled ``models.myMLP`` /
   ``models.myLinearModel`` modules (:func:`load_reference_adapter`).
 
@@ -26,7 +27,7 @@ import dataclasses
 import json
 import struct
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -42,6 +43,7 @@ from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import Ber
 from incremental_multimodal_medical_learning_ii_torch.models.resnet import (
     Conv2d,
     FrozenBatchNorm,
+    ResNet18,
     ResNet50,
 )
 from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import PromptTokenizer
@@ -246,29 +248,43 @@ def _bn(bn: FrozenBatchNorm, sd: Mapping, prefix: str) -> None:
         _copy(getattr(bn, name), sd[f"{prefix}.{key}"], f"{prefix}.{key}")
 
 
+@torch.no_grad()
+def _load_trunk(enc, sd: Mapping, p: str) -> None:
+    """A torchvision trunk's weights under ``p`` into ``enc`` (ResNet-50
+    or ResNet-18)."""
+    _conv(enc.conv1, sd, p + "conv1.weight")
+    _bn(enc.bn1, sd, p + "bn1")
+    for li in range(1, 5):
+        for bi, block in enumerate(getattr(enc, f"layer{li}")):
+            bp = f"{p}layer{li}.{bi}."
+            for i in range(1, block.n_convs + 1):
+                _conv(getattr(block, f"conv{i}"), sd, f"{bp}conv{i}.weight")
+                _bn(getattr(block, f"bn{i}"), sd, f"{bp}bn{i}")
+            if (block.downsample_conv is None) != (bp + "downsample.0.weight" not in sd):
+                raise ValueError(f"{bp}: downsample does not match the architecture")
+            if block.downsample_conv is not None:
+                _conv(block.downsample_conv, sd, bp + "downsample.0.weight")
+                _bn(block.downsample_bn, sd, bp + "downsample.1")
+
+
+def convert_resnet18_state_dict(sd: Mapping, prefix: str = "") -> ResNet18:
+    """A torchvision ResNet-18 (BasicBlock) state dict, optionally under
+    ``prefix`` -> :class:`ResNet18`."""
+    model = ResNet18(in_channels=sd[prefix + "conv1.weight"].shape[1])
+    _load_trunk(model, sd, prefix)
+    return model.eval()
+
+
 def convert_biovil_image_state_dict(sd: Mapping) -> BioViLImageModel:
     """The reference ``ImageModel`` state dict (ResNet-50 trunk under
     ``encoder.encoder.``, projector under ``projector.model.{0,1,3}``)."""
     p = "encoder.encoder."
     if p + "layer1.0.conv3.weight" not in sd:
-        raise ValueError("not a ResNet-50 BioViL checkpoint (ResNet-18 trunks are not yet "
-                         "ported to the PyTorch package)")
+        raise ValueError("not a ResNet-50 BioViL checkpoint (BioViL image checkpoints exist "
+                         "with a ResNet-50 trunk only)")
     with torch.no_grad():
         model = BioViLImageModel(ResNet50(in_channels=sd[p + "conv1.weight"].shape[1]))
-        enc = model.encoder
-        _conv(enc.conv1, sd, p + "conv1.weight")
-        _bn(enc.bn1, sd, p + "bn1")
-        for li in range(1, 5):
-            for bi, block in enumerate(getattr(enc, f"layer{li}")):
-                bp = f"{p}layer{li}.{bi}."
-                for i in (1, 2, 3):
-                    _conv(getattr(block, f"conv{i}"), sd, f"{bp}conv{i}.weight")
-                    _bn(getattr(block, f"bn{i}"), sd, f"{bp}bn{i}")
-                if (block.downsample_conv is None) != (bp + "downsample.0.weight" not in sd):
-                    raise ValueError(f"{bp}: downsample does not match the architecture")
-                if block.downsample_conv is not None:
-                    _conv(block.downsample_conv, sd, bp + "downsample.0.weight")
-                    _bn(block.downsample_bn, sd, bp + "downsample.1")
+        _load_trunk(model.encoder, sd, p)
         proj = model.projector
         _conv(proj.conv1, sd, "projector.model.0.weight")
         _bn(proj.bn, sd, "projector.model.1")
@@ -339,3 +355,40 @@ def load_reference_adapter(path: str) -> nn.Module:
         adapter = LinearAdapter(sd["layer.0.weight"].shape[1])
     _linear(adapter.dense1, sd, "layer.0")
     return adapter.eval()
+
+
+# ----------------------------------------------------------------------
+# Diagnostics
+# ----------------------------------------------------------------------
+def compare_params(a, b, atol: float = 0.0, verbose: bool = True) -> List[str]:
+    """Entry-by-entry comparison of two modules' state dicts (or two state
+    dicts): the reference's ``Trainer.compare_models`` diff
+    (``Trainer.py:1287-1300``).  Returns the names of the entries that
+    differ by more than ``atol``; prints a summary when verbose.  Raises
+    when the two hold different entries."""
+    sa = a.state_dict() if isinstance(a, nn.Module) else a
+    sb = b.state_dict() if isinstance(b, nn.Module) else b
+    if len(sa) != len(sb):
+        raise ValueError(f"different structures: {len(sa)} vs {len(sb)} entries")
+    mismatched = []
+    for (ka, va), (kb, vb) in zip(sa.items(), sb.items()):
+        if ka != kb:
+            raise ValueError(f"key mismatch: {ka} vs {kb}")
+        va = torch.as_tensor(va).detach().cpu().to(torch.float64)
+        vb = torch.as_tensor(vb).detach().cpu().to(torch.float64)
+        if va.shape != vb.shape or not torch.allclose(va, vb, atol=atol, rtol=0):
+            mismatched.append(ka)
+            if verbose:
+                print("Mismatch found at", ka)
+    if verbose and not mismatched:
+        print("Params match perfectly! :)")
+    return mismatched
+
+
+@torch.no_grad()
+def encoder_output_dim(forward_fn, model: nn.Module, input_hw: int = 32) -> int:
+    """A trunk's output feature size from a forward of one zero image on
+    the model's device (``get_encoder_output_dim``, ``model.py:231-247``)."""
+    device = next(model.parameters()).device
+    out = forward_fn(model, torch.zeros((1, input_hw, input_hw, 3), device=device))
+    return int(out.shape[-1])

@@ -31,6 +31,7 @@ quantize_biovil_int8``).
 from __future__ import annotations
 
 import copy
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,7 +52,7 @@ class Int8Conv2d(nn.Module):
         self.stride = stride
         self.padding = padding
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, **overrides) -> torch.Tensor:
         raise RuntimeError("an int8-quantized conv runs through conv_apply_int8 "
                            "(biovil_image_forward(..., int8=True))")
 
@@ -104,14 +105,20 @@ def _pad_to(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
 
 
-def _int_mm_conv(xq: torch.Tensor, kq: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
-    """CUDA: im2col of the NHWC int8 activations, then ``torch._int_mm``."""
+def _int_mm_conv(xq: torch.Tensor, kq: torch.Tensor, stride: int, padding: int,
+                 dilation: int = 1) -> torch.Tensor:
+    """CUDA: im2col of the NHWC int8 activations, then ``torch._int_mm``.
+    A dilated window is unfolded at its full extent and every
+    ``dilation``-th tap kept."""
     b = xq.shape[0]
     cout, cin, kh, kw = kq.shape
     x = xq.permute(0, 2, 3, 1)  # NHWC (a view of the channels_last tensor)
     if padding:
         x = F.pad(x, (0, 0, padding, padding, padding, padding))
-    patches = x.unfold(1, kh, stride).unfold(2, kw, stride)  # (B, Ho, Wo, C, kh, kw)
+    span_h, span_w = dilation * (kh - 1) + 1, dilation * (kw - 1) + 1
+    patches = x.unfold(1, span_h, stride).unfold(2, span_w, stride)  # (B, Ho, Wo, C, span_h, span_w)
+    if dilation != 1:
+        patches = patches[..., ::dilation, ::dilation]
     ho, wo = patches.shape[1], patches.shape[2]
     m, k = b * ho * wo, cin * kh * kw
     a = patches.reshape(m, k)
@@ -128,7 +135,8 @@ def _int_mm_conv(xq: torch.Tensor, kq: torch.Tensor, stride: int, padding: int) 
     return acc.view(b, ho, wo, cout).permute(0, 3, 1, 2)
 
 
-def conv_int8_sums(xq: torch.Tensor, kq: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+def conv_int8_sums(xq: torch.Tensor, kq: torch.Tensor, stride: int, padding: int,
+                   dilation: int = 1) -> torch.Tensor:
     """The int32 sums of an int8 convolution: ``xq`` (B, C, H, W) int8
     (any memory format), ``kq`` (cout, cin, kh, kw) int8 -> (B, cout, Ho,
     Wo) int32.  im2col + ``torch._int_mm`` on CUDA; exact float64
@@ -136,22 +144,25 @@ def conv_int8_sums(xq: torch.Tensor, kq: torch.Tensor, stride: int, padding: int
     if xq.device != kq.device:
         raise ValueError(f"operands on {xq.device} and {kq.device}")
     if xq.device.type == "cuda":
-        return _int_mm_conv(xq, kq, stride, padding)
+        return _int_mm_conv(xq, kq, stride, padding, dilation)
     if xq.device.type != "cpu":
         raise ValueError(f"the int8 conv runs on cuda or cpu, not {xq.device}")
-    acc = F.conv2d(xq.to(torch.float64), kq.to(torch.float64), stride=stride, padding=padding)
+    acc = F.conv2d(xq.to(torch.float64), kq.to(torch.float64), stride=stride, padding=padding,
+                   dilation=dilation)
     return acc.to(torch.int32)
 
 
-def conv_apply_int8(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def conv_apply_int8(conv: nn.Module, x: torch.Tensor, stride: Optional[int] = None,
+                    padding: Optional[int] = None, dilation: int = 1) -> torch.Tensor:
     """Int8 conv: dynamic per-tensor activation scale, per-channel weight
     scales, int32 sums, dequantised back to ``x.dtype``.  Drop-in for
     :func:`models.resnet.conv_apply` through the forwards' ``conv``
-    argument."""
+    argument (the conv's own stride and padding unless given)."""
     if not isinstance(conv, Int8Conv2d):
         raise ValueError("int8=True expects a trunk from quantize_biovil_int8")
     xq, s_x = quantize_activation(x)
-    acc = conv_int8_sums(xq, conv.kernel_q, conv.stride, conv.padding)
+    acc = conv_int8_sums(xq, conv.kernel_q, conv.stride if stride is None else stride,
+                         conv.padding if padding is None else padding, dilation)
     scale = s_x * conv.w_scale
     out = acc.to(torch.float32) * scale.view(1, -1, 1, 1)
     return out.to(x.dtype)

@@ -114,8 +114,10 @@ def test_extract_cli_hosts_resume_and_prepare(tmp_path, same_weights):
         np.testing.assert_array_equal(ours.embeddings, ref.embeddings)
         np.testing.assert_array_equal(ours.labels, ref.labels)
     assert len(EmbeddingDataset.load(tmp_path / "port.head.npz")) == 4
-    with pytest.raises(NotImplementedError, match="not yet ported.*4c"):
-        t_prepare.main(["--shards", *hosts, "--out", str(tmp_path / "n.npz"), "--native"])
+    # --native writes <out>.embstore beside the .npz, byte for byte the JAX CLI's
+    for main, name in ((j_prepare.main, "jax"), (t_prepare.main, "port")):
+        main(["--shards", *hosts, "--out", str(tmp_path / f"n-{name}.npz"), "--native"])
+    assert (tmp_path / "n-port.embstore").read_bytes() == (tmp_path / "n-jax.embstore").read_bytes()
     with pytest.raises(SystemExit, match="host-index"):
         t_extract.main([*SYN, "--num-hosts", "2", "--host-index", "2", "--out-dir",
                         str(tmp_path / "x"), "--device", "cpu"])

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports no JAX, nothing of the JAX
-package and none of the packages the card's machine lacks (transformers,
-safetensors, matplotlib, sklearn, tensorboard, optax), and its entry
-points do not quietly run on the CPU."""
+package (not even its native runtime's library) and none of the packages
+the card's machine lacks (transformers, safetensors, matplotlib, sklearn,
+tensorboard, optax), and its entry points do not quietly run on the CPU."""
 
 import ast
 import os
@@ -26,6 +26,10 @@ EXTRACTION_MODULES = ("engine.extract", "ops.quant", "ops.preprocess", "data.ima
                       "data.manifest", "utils.serialization", "cli.extract_embeddings",
                       "cli.verify_embeddings", "cli.convert_weights", "cli.prepare_data",
                       "cli.reproduce")
+# the grounding slice's modules: the VLP engines and their CLIs, the rest of
+# the image model surface and the native store
+GROUNDING_MODULES = ("vlp", "vlp.engine", "models.image_engine", "models.heads", "runtime",
+                     "data.native", "cli.ground", "cli.dataset_stats")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -50,9 +54,53 @@ def test_import_all_submodules_loads_no_jax():
     n_modules, loaded = int(lines[0]), lines[1:]
     assert n_modules >= 32
     port = "incremental_multimodal_medical_learning_ii_torch."
-    assert all(port + m in loaded for m in TRAINING_MODULES + EXTRACTION_MODULES)
+    assert all(port + m in loaded
+               for m in TRAINING_MODULES + EXTRACTION_MODULES + GROUNDING_MODULES)
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("subpackage", ["vlp", "runtime"])
+def test_new_subpackage_imports_alone_without_jax(subpackage):
+    """Each subpackage imports on its own in a fresh interpreter, loading no
+    JAX and nothing of the JAX package, and building nothing."""
+    code = (f"import sys\n"
+            f"import incremental_multimodal_medical_learning_ii_torch.{subpackage} as m\n"
+            f"import pkgutil, importlib\n"
+            f"for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
+            f"    importlib.import_module(i.name)\n"
+            f"print(sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_library_builds_into_the_ports_build_dir_only():
+    """The port loads its own library from its ``_build/``, never the JAX
+    package's ``runtime/libembstore.so``, and builds nothing at import."""
+    code = (
+        "import sys\n"
+        "import incremental_multimodal_medical_learning_ii_torch.data.native as n\n"
+        "from incremental_multimodal_medical_learning_ii_torch import runtime\n"
+        "assert runtime._lib is None\n"
+        "if not n.native_available():\n"
+        "    print('no toolchain:', runtime.native_build_error()); sys.exit(0)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print(runtime.library_path())\n"
+        "print(int('ii_tpu/runtime' in maps), int(str(runtime.library_path()) in maps))\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'incremental_multimodal_medical_learning_ii_tpu')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    if out.stdout.startswith("no toolchain"):
+        pytest.skip(out.stdout.strip())
+    path, flags, modules = out.stdout.splitlines()
+    assert Path(path).parent == REPO / "incremental_multimodal_medical_learning_ii_torch" / "_build"
+    assert Path(path).name.startswith("libembstore-")
+    assert flags == "0 1" and modules == "[]"
 
 
 def _imported_roots(path: Path):
@@ -155,6 +203,26 @@ def test_drivers_refuse_without_cuda_and_refuse_what_is_not_ported(monkeypatch, 
         Trainer(ExperimentConfig(), bank)
     with pytest.raises(NotImplementedError, match="figures need matplotlib"):
         Trainer(ExperimentConfig(plot_figures="reference"), bank, device="cpu")
+
+
+def test_grounding_engines_refuse_without_cuda(monkeypatch):
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        init_biovil_image_model,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.models.image_engine import (
+        ImageInferenceEngine,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.vlp.engine import (
+        ImageTextInferenceEngine,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = init_biovil_image_model()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ImageInferenceEngine(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ImageTextInferenceEngine(model, text_engine=None)
+    assert ImageTextInferenceEngine(model, None, device="cpu").device.type == "cpu"
 
 
 def test_kernel_wrappers_refuse_foreign_devices():
