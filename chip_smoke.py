@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
     python3 chip_smoke.py --profile  # also torch.profiler windows (phases 7, 11, 13, 14)
+    python3 chip_smoke.py --mesh-only  # phases 1, 2 and 15 alone; no result line
 
 Phases, in order; any failure ends the script with a non-zero exit code
 and without the final result line:
@@ -1180,6 +1181,10 @@ CPU_AUROC_ATOL = 1e-3  # val/test AUROC-macro
 # apart by fp32 noise, and a weight near the reset cutoff flips: the knife
 # edge of PARITY.md:172-185; the largest share is reported)
 RESET_SHARE = 0.005
+# the CPU reference runs on at most the one-card machine's 8 threads on any
+# host: its summation order, and so a whole run's fp32 drift, follows the
+# thread count (class-incremental MAX at 32 threads: 1.17e-5 from the card)
+CPU_REFERENCE_THREADS = 8
 LOOPS = ("build_fused_epoch", "build_fused_unit", "build_fused_run", "build_fused_eval")
 
 
@@ -1291,10 +1296,12 @@ def event_streams(log_dir: Path) -> dict:
 
 
 def run_driver(cli: str, flags, data_dir: Path, log_dir: Path, device: str,
-               host_s: dict) -> dict:
-    """One driver through its CLI's ``main`` (its printout discarded); the
-    K1 launches, the per-step myCL reset counts, the wall time around it
-    and the host's time inside its guarded loops."""
+               host_s: dict, read_streams: bool = True) -> dict:
+    """One driver through its CLI's ``main`` (its printout discarded), in
+    this process (``--mesh-devices 1``) unless ``flags`` ask for ranks; the
+    kernels' launches (K1 on the training path) and K1-mesh's calls, the per-step
+    myCL reset counts, the wall time around it, the host's time inside its
+    guarded loops and (``read_streams``) its event streams."""
     import contextlib
     import importlib
 
@@ -1310,6 +1317,7 @@ def run_driver(cli: str, flags, data_dir: Path, log_dir: Path, device: str,
     )
     from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
         fused_pairwise_cosine,
+        pairwise_cosine_sharded,
     )
 
     main = importlib.import_module(f"{PACKAGE}.cli.{cli}").main
@@ -1323,9 +1331,12 @@ def run_driver(cli: str, flags, data_dir: Path, log_dir: Path, device: str,
 
     Trainer._flush_epoch_metrics = record
     counters = (fused_pairwise_cosine, fused_bottleneck_layer, flash_attention)
+    if "--mesh-devices" not in flags:  # 0, the default, starts a rank a visible card
+        flags = [*flags, "--mesh-devices", "1"]
     try:
         for fn in counters:
             fn.launches = 0
+        pairwise_cosine_sharded.calls = 0
         host_s.clear()
         printout = io.StringIO()  # the drivers print every eval's metrics
         if device == "cuda":
@@ -1338,13 +1349,14 @@ def run_driver(cli: str, flags, data_dir: Path, log_dir: Path, device: str,
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in counters}
+        launches["pairwise_cosine_sharded_calls"] = pairwise_cosine_sharded.calls
     finally:
         Trainer._flush_epoch_metrics = flush
     steps = int(res["trainer"].state.step)
     return dict(wall_s=wall, steps=steps, steps_per_s=steps / wall, launches=launches,
                 loop_host_s=dict(host_s),
                 resets=np.concatenate(resets) if resets else np.zeros(0, np.int64),
-                streams=event_streams(log_dir),
+                streams=event_streams(log_dir) if read_streams else None,
                 params={k: v.detach().cpu() for k, v in res["trainer"].state.params.items()})
 
 
@@ -1494,7 +1506,8 @@ def training(bank, results):
             check(r["launches"]["fused_pairwise_cosine"] == expected,
                   f"{name}: K1 launched {r['launches']['fused_pairwise_cosine']} times, "
                   f"the eval passes imply {expected}")
-            check(r["launches"]["fused_bottleneck_layer"] == 0 and r["launches"]["flash_attention"] == 0,
+            check(r["launches"]["fused_bottleneck_layer"] == 0 and r["launches"]["flash_attention"] == 0
+                  and r["launches"]["pairwise_cosine_sharded_calls"] == 0,
                   f"{name}: a kernel off the training path was launched")
             final = r["streams"]["test/AUROC-macro"][-1][1]
             check(0.0 <= final <= 1.0, f"{name}: final test AUROC-macro {final}")
@@ -1519,9 +1532,14 @@ def training(bank, results):
             check(same["train/Loss"] <= CPU_LOSS_ATOL and same["val/Loss"] <= CPU_LOSS_ATOL,
                   f"{name}: --fused-unit changed the loss streams: {same}")
             out[f"fused_vs_unfused {name}"] = same
+        threads = torch.get_num_threads()
         for name in ("data-inc", "joint", "class-pos-neg MORE_LABELS MAX"):
             cli, flags, _, _ = runs[name]
-            r = run_driver(cli, flags, data_dir, tmp / f"cpu-{name.split()[0]}", "cpu", host_s)
+            torch.set_num_threads(min(threads, CPU_REFERENCE_THREADS))
+            try:
+                r = run_driver(cli, flags, data_dir, tmp / f"cpu-{name.split()[0]}", "cpu", host_s)
+            finally:
+                torch.set_num_threads(threads)
             diff = compare_runs(cuda_runs[name], r, n_weights)
             out["cpu"][name] = dict(wall_s=r["wall_s"], steps_per_s=r["steps_per_s"],
                                     cuda_wall_s=cuda_runs[name]["wall_s"], **diff)
@@ -1870,7 +1888,8 @@ def reproduce_gates(tmp: Path, results) -> dict:
 
     zero_counts()
     t0 = time.perf_counter()
-    rehearsal = reproduce.main(["--rehearsal", "--log-dir", str(tmp / "rehearsal")])
+    rehearsal = reproduce.main(["--rehearsal", "--mesh-devices", "1",
+                                "--log-dir", str(tmp / "rehearsal")])
     wall = time.perf_counter() - t0
     launches = read_counts()
     check(launches["fused_cosine"] > 0 and launches["fused_bottleneck"] == 0
@@ -1879,7 +1898,7 @@ def reproduce_gates(tmp: Path, results) -> dict:
     dry = {}
     for device in ("cuda", "cpu"):
         with contextlib.redirect_stdout(io.StringIO()):
-            dry[device] = reproduce.main(["--dry-run", "--device", device,
+            dry[device] = reproduce.main(["--dry-run", "--device", device, "--mesh-devices", "1",
                                           "--log-dir", str(tmp / f"dry-{device}")])
     diffs = {g: abs(dry["cuda"][g]["measured"] - dry["cpu"][g]["measured"]) for g in dry["cpu"]}
     out = dict(rehearsal_wall_s=wall, launches=launches,
@@ -1907,7 +1926,8 @@ def served_checkpoint(tmp: Path, results) -> dict:
 
     with contextlib.redirect_stdout(io.StringIO()):
         zero_joint_bounds.main(["--synthetic", "--epochs", "2", "--batch-size", "512",
-                                "--plot-figures", "off", "--log-dir", str(tmp / "train")])
+                                "--plot-figures", "off", "--mesh-devices", "1",
+                                "--log-dir", str(tmp / "train")])
     (run_dir,) = [p.parent for p in (tmp / "train").rglob("train_state")]
     p = argparse.ArgumentParser()
     classify.add_classifier_args(p)
@@ -2335,6 +2355,437 @@ def native_store(bank, results) -> None:
 
 
 # ----------------------------------------------------------------------
+# the data-parallel mesh: ranks over torch.distributed (parallel/mesh.py)
+# ----------------------------------------------------------------------
+# phase 12's regimes on a mesh: (cli, flags, units evaluated, K1 launches
+# per eval batch); joint for 2 epochs
+MESH_RUNS = {
+    "joint": ("zero_joint_bounds", ["--epochs", "2"], 2, 1),
+    "joint --fused-unit": ("zero_joint_bounds", ["--epochs", "2", "--fused-unit"], 2, 1),
+    "data-inc": ("data_incremental", ["--parts", "20", "--continual-learning", "myCL"], 20, 1),
+    "data-inc --fused-unit": ("data_incremental", ["--parts", "20", "--continual-learning", "myCL",
+                                                   "--fused-unit"], 20, 1),
+    "class-pos-neg MORE_LABELS MAX": ("class_incremental", ["--max-emb"], 5, 2),
+}
+# one NCCL rank against no mesh (the same arithmetic), and one step of two
+# ranks against one (a sum in another order): the loss and the MAX gaps
+MESH_LOSS_ATOL = 1e-6
+MESH_AUROC_ATOL = 1e-4
+# two ranks' whole runs against one rank's: each gradient is summed in
+# another order, and that fp32 difference compounds over hundreds of Adam
+# steps and myCL resets (class-incremental MAX parts from task 2 on, on the
+# CPU too), so phase 12's whole-run bars (1e-5, 0.5% on 99% of the steps)
+# do not hold.  These bars sit between the sound runs' largest readings
+# (losses 1.81e-5, reset p99 0.92%) and the readings of two planted faults
+# (PERF.md section 6: a rank-local loss denominator, reset counts summed
+# over the ranks)
+MESH_RUN_LOSS_ATOL = 5e-5
+MESH_RUN_RESET_P99 = 0.02
+K1_MESH_CASES = ((1024, 10), (1024, 20), (1023, 10))  # global rows x bank rows; 1023: ragged
+K1_MESH_SHAPE = (EVAL_BS // 2, 10)  # one rank's rows of an eval batch at two ranks, MEAN bank
+MESH_EXTRACT_N = 512
+MESH_EXTRACT_FP32_N = 8
+GLOO_ON_ONE_CARD = ["cuda:0", "cuda:0"]  # NCCL needs a card a rank; gloo shares one
+
+
+def eval_batches_per_unit() -> int:
+    import math
+
+    return math.ceil(VAL_ROWS / EVAL_BS) + math.ceil(TEST_ROWS / EVAL_BS)
+
+
+def k1_mesh_checks(mesh) -> dict:
+    """(15a) K1-mesh on this rank against its plain version: every rank
+    scores its rows of the same global batch (drawn from one seed) and
+    gathers; the result is held against ``pairwise_cosine`` of the whole
+    batch.  Then the whole call, gather included, timed with both ranks in
+    the collective."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        pairwise_cosine,
+        pairwise_cosine_sharded,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import batch_rows
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    errs = {}
+    for b, t in K1_MESH_CASES:
+        x = torch.randn(b, 128, device="cuda", generator=g)
+        bank = torch.randn(t, 128, device="cuda", generator=g)
+        got = pairwise_cosine_sharded(mesh, batch_rows(mesh, x), bank, b)
+        errs[f"{b}x{t}"] = float((got - pairwise_cosine(x, bank)).abs().max())
+    local = batch_rows(mesh, torch.randn(EVAL_BS, 128, device="cuda", generator=g))
+    bank = torch.randn(K1_MESH_SHAPE[1], 128, device="cuda", generator=g)
+    sharded_ms = cuda_time_ms(lambda: pairwise_cosine_sharded(mesh, local, bank, EVAL_BS), 50)
+    return {"max_abs_err": errs, "sharded_ms": sharded_ms}
+
+
+def mesh_extraction(mesh, tmp: Path) -> dict:
+    """(15d) ``extract_embeddings(mesh=)`` on this rank: ``--synthetic``'s
+    images at the CLI's defaults (batch 128, 512^2, bf16) into rank 0's
+    shards, the same cut after half and resumed, and 8 images in fp32."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli.extract_embeddings import (
+        synthetic_images,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.data.store import ShardedEmbeddingStore
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import extract_embeddings
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        init_biovil_image_model,
+    )
+
+    model = init_biovil_image_model(torch.Generator().manual_seed(0))
+    items = list(synthetic_images(MESH_EXTRACT_N))
+    half = MESH_EXTRACT_N // 2
+
+    def run(images, **kw):
+        kw = {"batch_size": EXTRACT_BS, "size": EXTRACT_SIZE, "checkpoint_interval": half,
+              "mesh": mesh, **kw}
+        return extract_embeddings(images, model, **kw).embeddings
+
+    run(items[:EXTRACT_BS])  # warm-up at the batch's shape, not timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clean = run(items, store=ShardedEmbeddingStore(tmp / "clean"))
+    wall = time.perf_counter() - t0
+    cut = ShardedEmbeddingStore(tmp / "cut")
+    run(items[:half], store=cut)
+    resumed = run(items, store=cut, resume=True)
+    fp32 = run(items[:MESH_EXTRACT_FP32_N], batch_size=MESH_EXTRACT_FP32_N, dtype=torch.float32)
+    return dict(bf16=clean, fp32=fp32, wall_s=wall, images_per_s=MESH_EXTRACT_N / wall,
+                resumed_bit_exact=bool(np.array_equal(resumed, clean)),
+                shards=len(ShardedEmbeddingStore(tmp / "clean").shard_paths()))
+
+
+# one step from the same state at two ranks against the card alone: myCL
+# over all classes (MEAN), and MORE_LABELS' first two classes in MAX mode
+ONE_STEP_CONFIGS = {
+    "myCL MEAN": (dict(continual_learning="myCL"), (1, 1, 1, 1, 1)),
+    "MAX MORE_LABELS": (dict(prompt_mode="max"), (1, 1, 0, 0, 0)),
+}
+
+
+def one_step_agreement(mesh, data_dir: Path, steps: int = 20) -> dict:
+    """A train step at this mesh's ranks against the same step on this
+    rank's card with no mesh, from the same state and batch (the no-mesh
+    step starts from the mesh's state before every step), at myCL
+    thresholds across the data-inc schedule: the loss, the MAX gaps and the
+    reset counts of each step.  The mesh's arithmetic without the drift of
+    two whole runs apart (phase 12's one-step bar)."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.data.store import EmbeddingDataset
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.text.bank import (
+        build_prompt_bank,
+        synthetic_encode_fn,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+        CHEXPERT_COMPETITION_TASKS,
+        ExperimentConfig,
+    )
+
+    bank = build_prompt_bank(synthetic_encode_fn(27), create_prompts(CHEXPERT_COMPETITION_TASKS),
+                             CHEXPERT_COMPETITION_TASKS)
+    train = EmbeddingDataset.load(data_dir / "train.npz")
+    out = {}
+    for name, (kw, classes) in ONE_STEP_CONFIGS.items():
+        cfg = ExperimentConfig(plot_figures="off", **kw)
+        on_mesh, alone = Trainer(cfg, bank, mesh=mesh), Trainer(cfg, bank, device=mesh.device)
+        bs, state = cfg.batch_size, on_mesh.state
+        class_mask = torch.tensor(classes, dtype=torch.float32, device=mesh.device)
+        loss_diff, gap_diff, resets = 0.0, 0.0, []
+        for i in range(steps):
+            rows = slice(i * bs, (i + 1) * bs)
+            embs, labels = (torch.from_numpy(a[rows]).to(mesh.device)
+                            for a in (train.embeddings, train.labels))
+            thr = torch.tensor(0.011 + 0.2 * i / (steps - 1), device=mesh.device)
+            mask = torch.ones(bs, device=mesh.device)
+            before = state
+            state, got = on_mesh._train_step(before, embs, labels, mask, class_mask,
+                                             on_mesh.bank, thr)
+            _, want = alone._train_step(before, embs, labels, mask, class_mask, alone.bank, thr)
+            loss_diff = max(loss_diff, float((got["loss"] - want["loss"]).abs()))
+            for k in ("max_mean_gap_pos", "max_mean_gap_neg"):
+                if k in want:
+                    gap_diff = max(gap_diff, float((got[k] - want[k]).abs()))
+            if "n_reset" in want:
+                resets.append(abs(int(got["n_reset"]) - int(want["n_reset"])))
+        n_weights = sum(v.numel() for v in state.params.values())
+        out[name] = dict(steps=steps, loss_max_abs_diff=loss_diff, gap_max_abs_diff=gap_diff,
+                         reset_max_diff=max(resets, default=0),
+                         reset_max_share=max(resets, default=0) / n_weights)
+    return out
+
+
+def mesh_rank(data_dir: str, tmp: str, runs) -> dict:
+    """One rank of a group spawned by phase 15 (two over gloo on one card,
+    or two over NCCL on two cards): K1-mesh's checks, the drivers' regimes
+    ``runs`` through their CLIs' ``main`` with ``--mesh-devices 2``, and
+    (over gloo) extraction.  Rank 0 alone reads the event streams."""
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(2)
+    out = {"rank": mesh.rank, "backend": mesh.backend, "k1_mesh": k1_mesh_checks(mesh), "runs": {},
+           "one_step": one_step_agreement(mesh, Path(data_dir))}
+    for i, name in enumerate(runs):
+        cli, flags, _, _ = MESH_RUNS[name]
+        r = run_driver(cli, [*flags, "--mesh-devices", "2"], Path(data_dir),
+                       Path(tmp) / f"{mesh.backend}{i}", "cuda", {}, read_streams=mesh.rank == 0)
+        r["params"] = {k: v.numpy() for k, v in r["params"].items()}
+        out["runs"][name] = r
+    if mesh.backend == "gloo":
+        out["extraction"] = mesh_extraction(mesh, Path(tmp) / "extract-gloo")
+    return out
+
+
+def as_torch_params(run: dict) -> dict:
+    import torch
+
+    return dict(run, params={k: torch.as_tensor(v) for k, v in run["params"].items()})
+
+
+def check_ranks(name: str, ranks: list, reference: dict, n_weights: int, log_dirs) -> dict:
+    """Two ranks' run of one regime against the one-rank run: the ranks'
+    parameters bit-equal, one event stream, K1 and K1-mesh on every eval
+    batch, AUROC 1e-3, the loss streams and the myCL reset counts within
+    the whole-run bars above (phase 12's are reported beside them).  The
+    mesh's arithmetic is held to phase 12's bars step by step
+    (:func:`one_step_agreement`)."""
+    import numpy as np
+
+    r0, r1 = (r["runs"][name] for r in ranks)
+    _, _, units, per_batch = MESH_RUNS[name]
+    expected = units * eval_batches_per_unit() * per_batch
+    for r in (r0, r1):
+        check(r["launches"]["fused_pairwise_cosine"] == expected
+              and r["launches"]["pairwise_cosine_sharded_calls"] == expected,
+              f"{name} at two ranks: K1 launched / K1-mesh called {r['launches']}, the eval "
+              f"passes imply {expected} each")
+    same = all(np.array_equal(r0["params"][k], r1["params"][k]) for k in r0["params"])
+    check(same, f"{name}: the two ranks' parameters differ")
+    files = sorted(log_dirs[name].glob("**/events.out.tfevents.*"))
+    check(len(files) == 1, f"{name}: {len(files)} event files from two ranks")
+    diff = compare_runs(reference, as_torch_params(r0), n_weights)
+    check(diff["val/AUROC-macro"] <= CPU_AUROC_ATOL and diff["test/AUROC-macro"] <= CPU_AUROC_ATOL,
+          f"{name}: two ranks' AUROC differs from one rank's: {diff}")
+    loss = max(diff["train/Loss"], diff["val/Loss"])
+    reset_p99 = diff.get("reset_share_quantiles", {}).get("p99", 0.0)
+    check(loss <= MESH_RUN_LOSS_ATOL and reset_p99 <= MESH_RUN_RESET_P99,
+          f"{name}: two ranks' whole run drifts from one rank's: losses {loss:.3g} (bar "
+          f"{MESH_RUN_LOSS_ATOL:g}), reset p99 {reset_p99:.4%} (bar {MESH_RUN_RESET_P99:.1%})")
+    return dict(diff, within_phase12_bars=loss <= CPU_LOSS_ATOL and reset_p99 <= RESET_SHARE,
+                wall_s=r0["wall_s"], steps_per_s=r0["steps_per_s"], launches=r0["launches"],
+                ranks_bit_equal=same)
+
+
+def k1_mesh_times() -> dict:
+    """K1 at one rank's share of an eval batch at two ranks, (1024 / 2) x 10,
+    next to K1 at the whole batch; the plain version, ``torch.matmul`` of
+    the normalised operands, the profiler's device time, the bound."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.ops.cosine import l2_normalize
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        fused_pairwise_cosine,
+        pairwise_cosine,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    b, t = K1_MESH_SHAPE
+    whole = torch.randn(EVAL_BS, 128, device="cuda", generator=g)
+    x, bank = whole[:b], torch.randn(t, 128, device="cuda", generator=g)
+    xn, tn = l2_normalize(x), l2_normalize(bank)
+    bound, by = cosine_bound_ms(b, t)
+    med = alternating_ms({"ms": lambda: fused_pairwise_cosine(x, bank),
+                          "library_ms": lambda: torch.matmul(xn, tn.T),
+                          "whole_batch_ms": lambda: fused_pairwise_cosine(whole, bank)}, iters=200)
+    return dict(shape=f"{b}x{t}", **med, plain_ms=cuda_time_ms(lambda: pairwise_cosine(x, bank), 200),
+                bound_ms=bound, bound_by=by,
+                kernel_device_ms=profiled_device_ms(lambda: fused_pairwise_cosine(x, bank),
+                                                    fused_pairwise_cosine, "fused_cosine_kernel",
+                                                    med["ms"], bound))
+
+
+def mesh_phase(results) -> dict:
+    """Phase 15: (a) K1-mesh at two gloo ranks on the card; (b) one NCCL
+    rank (``create_mesh(1)``) through the drivers against no mesh, K1-mesh
+    on every eval batch, the fused loops under sync debug mode; (c) the
+    same regimes at two gloo ranks on the card; (d) extraction with
+    ``mesh=``; (e) two NCCL ranks where two cards are visible; (f) times."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import common
+    from incremental_multimodal_medical_learning_ii_torch.cli.extract_embeddings import (
+        synthetic_images,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import extract_embeddings
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        init_biovil_image_model,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
+        create_mesh,
+        destroy_mesh,
+        spawn_ranks,
+    )
+
+    out: dict = {"nccl1": {}, "none": {}, "gloo2": {}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    calls: dict = {}
+    host_s: dict = {}
+    try:
+        data_dir = training_data(tmp / "data")
+        mesh = create_mesh(1)
+        check(mesh.backend == "nccl" and mesh.device == torch.device("cuda", 0),
+              f"create_mesh(1) on the card: {mesh}")
+        # (b) each regime with --mesh-devices 1 (no mesh), then on the hand-built
+        # NCCL mesh, the fused loops guarded; K1-mesh's launches are the path's
+        undo = guarded_loops(calls, host_s)
+        make_mesh = common.make_mesh
+        runs: dict = {"none": {}, "nccl1": {}}
+        try:
+            for i, (name, (cli, flags, units, per_batch)) in enumerate(MESH_RUNS.items()):
+                runs["none"][name] = run_driver(cli, [*flags, "--mesh-devices", "1"], data_dir,
+                                                tmp / f"none{i}", "cuda", host_s)
+                common.make_mesh = lambda args: mesh
+                try:
+                    runs["nccl1"][name] = run_driver(cli, [*flags, "--mesh-devices", "1"], data_dir,
+                                                     tmp / f"nccl{i}", "cuda", host_s)
+                finally:
+                    common.make_mesh = make_mesh
+                expected = units * eval_batches_per_unit() * per_batch
+                for kind, want_mesh in (("none", 0), ("nccl1", expected)):
+                    r = runs[kind][name]
+                    check(r["launches"]["fused_pairwise_cosine"] == expected
+                          and r["launches"]["pairwise_cosine_sharded_calls"] == want_mesh,
+                          f"{name} ({kind}): K1 launched / K1-mesh called {r['launches']}, the eval "
+                          f"passes imply {expected} / {want_mesh}")
+                    out[kind][name] = dict(wall_s=r["wall_s"], steps=r["steps"],
+                                           steps_per_s=r["steps_per_s"], launches=r["launches"],
+                                           loop_host_s=r["loop_host_s"])
+                n_weights = sum(v.numel() for v in runs["none"][name]["params"].values())
+                diff = compare_runs(runs["none"][name], runs["nccl1"][name], n_weights)
+                out["nccl1"][name]["vs_no_mesh"] = diff
+                log(f"  (b) {name}: one NCCL rank {runs['nccl1'][name]['steps_per_s']:.1f} steps/s "
+                    f"against {runs['none'][name]['steps_per_s']:.1f} with no mesh; "
+                    f"launches {json.dumps(runs['nccl1'][name]['launches'])}; {json.dumps(diff)}")
+                check(diff["train/Loss"] <= MESH_LOSS_ATOL and diff["val/Loss"] <= MESH_LOSS_ATOL,
+                      f"{name}: one NCCL rank's losses differ from no mesh: {diff}")
+                check(diff["val/AUROC-macro"] <= MESH_AUROC_ATOL
+                      and diff["test/AUROC-macro"] <= MESH_AUROC_ATOL,
+                      f"{name}: one NCCL rank's AUROC differs from no mesh: {diff}")
+            # (f) the collectives' cost: the whole-run fold again, in turns
+            # (no mesh, one rank, one rank, no mesh)
+            name = "data-inc --fused-unit"
+            cli, flags, _, _ = MESH_RUNS[name]
+            common.make_mesh = lambda args: mesh
+            try:
+                again = run_driver(cli, [*flags, "--mesh-devices", "1"], data_dir, tmp / "nccl-turn",
+                                   "cuda", host_s)
+            finally:
+                common.make_mesh = make_mesh
+            first = run_driver(cli, [*flags, "--mesh-devices", "1"], data_dir, tmp / "none-turn",
+                               "cuda", host_s)
+            turns = {"none": [runs["none"][name]["steps_per_s"], first["steps_per_s"]],
+                     "nccl1": [runs["nccl1"][name]["steps_per_s"], again["steps_per_s"]]}
+            out["fold_steps_per_s_in_turns"] = turns
+            log(f"  (f) {name} in turns (no mesh, one NCCL rank, one NCCL rank, no mesh): "
+                f"steps/s {json.dumps(turns)}")
+        finally:
+            undo()
+        check(all(calls.get(n, 0) > 0 for n in LOOPS), f"a fused loop ran unguarded: {calls}")
+        # K1-mesh's launches are K1's on the mesh runs (every K1 launch there
+        # came through K1-mesh: the counts are checked equal above)
+        out["k1_mesh_launches"] = sum(r["launches"]["fused_pairwise_cosine"]
+                                      for r in runs["nccl1"].values())
+        out["guarded_loop_calls"] = dict(calls)
+
+        # (a), (c), (d) at two gloo ranks on the card
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_rank, 2, GLOO_ON_ONE_CARD, str(data_dir), str(tmp / "gloo"),
+                            list(MESH_RUNS), backend="gloo")
+        out["gloo_spawn_wall_s"] = time.perf_counter() - t0
+        errs = {k: max(r["k1_mesh"]["max_abs_err"][k] for r in ranks)
+                for k in ranks[0]["k1_mesh"]["max_abs_err"]}
+        out["k1_mesh_check"] = errs
+        out["k1_mesh_sharded_gloo_ms"] = ranks[0]["k1_mesh"]["sharded_ms"]
+        log(f"  (a) K1-mesh at two gloo ranks on one card vs plain: {json.dumps(errs)}")
+        check(max(errs.values()) <= COSINE_ATOL, f"K1-mesh differs from its plain version: {errs}")
+        one_step = [r["one_step"] for r in ranks]
+        out["one_step"] = one_step[0]
+        log(f"  (c) one step from the same state, two gloo ranks vs the card alone: "
+            f"{json.dumps(one_step[0])}")
+        for per_rank in one_step:
+            for name, a in per_rank.items():
+                check(a["loss_max_abs_diff"] <= MESH_LOSS_ATOL
+                      and a["gap_max_abs_diff"] <= MESH_LOSS_ATOL
+                      and a["reset_max_share"] <= RESET_SHARE,
+                      f"one step from the same state ({name}): two ranks differ from one: {a}")
+        log_dirs = {name: tmp / "gloo" / f"gloo{i}" for i, name in enumerate(MESH_RUNS)}
+        for name in MESH_RUNS:
+            n_weights = sum(v.numel() for v in runs["nccl1"][name]["params"].values())
+            out["gloo2"][name] = check_ranks(name, ranks, runs["nccl1"][name], n_weights, log_dirs)
+            log(f"  (c) {name} at two gloo ranks vs one NCCL rank: {json.dumps(out['gloo2'][name])}")
+
+        # (d) extraction: no mesh, one NCCL rank, two gloo ranks
+        one = mesh_extraction(mesh, tmp / "extract-nccl")
+        model = init_biovil_image_model(torch.Generator().manual_seed(0))
+        items = list(synthetic_images(MESH_EXTRACT_N))
+        none_bf16 = extract_embeddings(items, model, batch_size=EXTRACT_BS,
+                                       size=EXTRACT_SIZE).embeddings
+        none_fp32 = extract_embeddings(items[:MESH_EXTRACT_FP32_N], model,
+                                       batch_size=MESH_EXTRACT_FP32_N, size=EXTRACT_SIZE,
+                                       dtype=torch.float32).embeddings
+        two = ranks[0]["extraction"]
+        ext = {}
+        for name, r in (("one NCCL rank", one), ("two gloo ranks", two)):
+            ext[name] = dict(bf16_min_cos=float(row_cos(r["bf16"], none_bf16).min()),
+                             fp32_max_abs_diff=float(np.abs(r["fp32"] - none_fp32).max()),
+                             resumed_bit_exact=r["resumed_bit_exact"], shards=r["shards"],
+                             wall_s=r["wall_s"], images_per_s=r["images_per_s"])
+            check(ext[name]["bf16_min_cos"] > EMB_COS and ext[name]["fp32_max_abs_diff"] <= EMB_ATOL
+                  and r["resumed_bit_exact"] and r["shards"] == 2,
+                  f"extraction with mesh= at {name}: {ext[name]}")
+        check(np.array_equal(ranks[0]["extraction"]["bf16"], ranks[1]["extraction"]["bf16"]),
+              "extraction: the two ranks returned different embeddings")
+        out["extraction"] = ext
+        log(f"  (d) extraction with mesh= ({MESH_EXTRACT_N} images, batch {EXTRACT_BS}, "
+            f"{EXTRACT_SIZE}^2, bf16; {MESH_EXTRACT_FP32_N} in fp32) vs no mesh: {json.dumps(ext)}")
+
+        # (e) two NCCL ranks need two cards
+        if torch.cuda.device_count() >= 2:
+            nccl = spawn_ranks(mesh_rank, 2, "cuda", str(data_dir), str(tmp / "nccl2"), ["joint"])
+            n_weights = sum(v.numel() for v in runs["nccl1"]["joint"]["params"].values())
+            out["nccl2"] = check_ranks("joint", nccl, runs["nccl1"]["joint"], n_weights,
+                                       {"joint": tmp / "nccl2" / "nccl0"})
+            log(f"  (e) joint at two NCCL ranks vs one: {json.dumps(out['nccl2'])}")
+        else:
+            out["nccl2"] = (f"not run: {torch.cuda.device_count()} card visible; NCCL needs one "
+                            "card a rank (two gloo ranks share the card in (c))")
+            log(f"  (e) two ranks over NCCL: {out['nccl2']}")
+        out["k1_mesh_times"] = k1_mesh_times()
+        log(f"  (f) K1 at one rank's rows of an eval batch: {json.dumps(out['k1_mesh_times'])}; "
+            f"the whole K1-mesh call at two gloo ranks (gather through the host) "
+            f"{out['k1_mesh_sharded_gloo_ms']:.4f} ms")
+        destroy_mesh()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        out_dir = REPO / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_mesh.json").write_text(json.dumps(out, indent=1, default=str))
+    results["mesh"] = out
+    return out
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2342,6 +2793,8 @@ def main(argv=None) -> int:
                     help="add torch.profiler windows over one served batch, one "
                          "report-length text encode (flash and dense), one extraction "
                          "encode (K2 and cuDNN layer1) and one grounding query")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1, 2 and 15 alone (the mesh), printing no result line")
     args = ap.parse_args(argv)
 
     if not (REPO / PACKAGE / "csrc").is_dir():
@@ -2391,6 +2844,12 @@ def main(argv=None) -> int:
     check(sum("flash_fwd_bf16_kernel" in e for e in ptxas) == 2, "no ptxas report for K3 bf16")
     check(sum(K2_KERNEL in e for e in ptxas) == 2, "no ptxas report for K2's two instantiations")
 
+    if args.mesh_only:
+        log("[15] the data-parallel mesh alone")
+        mesh_phase(results)
+        log(f"total {time.perf_counter() - t_start:.1f} s; --mesh-only prints no result line")
+        return 0
+
     model = init_biovil_image_model(torch.Generator().manual_seed(0))
     bank = build_prompt_bank(synthetic_encode_fn(27), create_prompts(CHEXPERT_COMPETITION_TASKS),
                              CHEXPERT_COMPETITION_TASKS)
@@ -2432,6 +2891,10 @@ def main(argv=None) -> int:
     grounding(bert, results, args.profile)
     model_surface(results)
     native_store(bank, results)
+    log("[15] the data-parallel mesh: K1-mesh at two gloo ranks on the card; one NCCL rank "
+        "through the three drivers against no mesh (loops under sync debug mode); the same at "
+        "two gloo ranks; extraction with mesh=; two NCCL ranks where two cards are visible")
+    mesh = mesh_phase(results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]
@@ -2485,6 +2948,15 @@ def main(argv=None) -> int:
         max_abs_err=k1n["max_abs_err"], ms=k1n["ms"], plain_ms=k1n["plain_ms"],
         bound_ms=k1n["bound_ms"], bound_by=k1n["bound_by"], library_ms=k1n["library_ms"],
         kernel_device_ms=k1n["kernel_device_ms"]))
+    k1m = mesh["k1_mesh_times"]  # K1-mesh: one rank's rows of an eval batch at two ranks (15f)
+    kernels.append(dict(
+        name=f"fused_cosine mesh (one rank of 2, {k1m['shape']})", route="cuda",
+        source=f"{PACKAGE}/csrc/fused_cosine.cu",
+        replaces="incremental_multimodal_medical_learning_ii_tpu/ops/pallas_cosine.py:84",
+        launches=mesh["k1_mesh_launches"], max_abs_err=max(mesh["k1_mesh_check"].values()),
+        ms=k1m["ms"], plain_ms=k1m["plain_ms"], bound_ms=k1m["bound_ms"], bound_by=k1m["bound_by"],
+        library_ms=k1m["library_ms"], kernel_device_ms=k1m["kernel_device_ms"],
+        whole_batch_ms=k1m["whole_batch_ms"], sharded_gloo_ms=mesh["k1_mesh_sharded_gloo_ms"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

@@ -33,7 +33,11 @@ def main(argv=None) -> dict:
     p.add_argument("--threshold-scheduling", action="store_true")
     args = p.parse_args(argv)
     common.check_unported(args)
-    device = resolve_device(args.device)
+    ranks = common.run_ranks(main, argv, args)
+    if ranks is not None:
+        return ranks
+    mesh = common.make_mesh(args)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
 
     cfg = ExperimentConfig(
         mode=args.mode,
@@ -49,7 +53,7 @@ def main(argv=None) -> dict:
     bundle = common.load_bundle(args)
     bank = common.build_bank(args, device)
     results = run_class_incremental(cfg, bundle, bank, log_dir=args.log_dir, device=device,
-                                    resume=args.resume)
+                                    resume=args.resume, mesh=mesh)
     common.print_results(results)
     return results
 

@@ -3,16 +3,21 @@ the image tower and the prompt bank from the weight-source flags, and the
 training drivers' flags (defaults equal the reference's constants),
 configuration, data and results.
 
-The drivers run on CUDA unless ``--device cpu`` is given.  What is not
-ported yet raises "not yet ported" (:func:`check_unported`): figures and
-``--tsne-plots`` (matplotlib is absent on the card's machine),
-``--trace-dir`` (``utils/profiling.py``) and ``--mesh-devices`` above 1
-(multi-GPU); the JAX package's compile cache has no counterpart.
+The drivers run on CUDA unless ``--device cpu`` is given.
+``--mesh-devices`` has the JAX CLI's meaning (:func:`mesh_size`): more
+than one runs the driver data-parallel on that many ranks, one process
+each (:func:`run_ranks`; NCCL on the card, one card a rank; gloo on the
+CPU), and only rank 0 prints and writes.  What is not ported yet raises
+"not yet ported" (:func:`check_unported`): figures and ``--tsne-plots``
+(matplotlib is absent on the card's machine) and ``--trace-dir``
+(``utils/profiling.py``); the JAX package's compile cache has no
+counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -155,7 +160,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="local HF snapshot dir (config.json + weights + vocab.txt)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu; nothing falls back")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="0 or 1: one card; more is multi-GPU, not yet ported")
+                   help="data-parallel ranks: 0 = every visible card (one process on the CPU), "
+                   "1 = no mesh")
     p.add_argument("--tsne-plots", action="store_true",
                    help="t-SNE figures: not yet ported (matplotlib is absent on the card's machine)")
     p.add_argument(
@@ -168,8 +174,7 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
 
 def check_unported(args) -> None:
     """Raise for a flag whose feature is not ported yet (the CLIs call this
-    before anything else; it takes the place of the JAX ``make_mesh``: the
-    port runs on one card)."""
+    before anything else)."""
     from incremental_multimodal_medical_learning_ii_torch.engine.protocols import (
         TRACE_NOT_PORTED,
     )
@@ -181,8 +186,56 @@ def check_unported(args) -> None:
         raise NotImplementedError(FIGURES_NOT_PORTED)
     if args.trace_dir:
         raise NotImplementedError(TRACE_NOT_PORTED)
-    if args.mesh_devices > 1:
-        raise NotImplementedError("not yet ported: multi-GPU: ROADMAP slice 7")
+
+
+def mesh_size(args) -> int:
+    """``--mesh-devices`` as the JAX CLI reads it: 1 is no mesh, 0 every
+    visible card on ``cuda`` and one process on the CPU, n > 1 n ranks."""
+    if args.mesh_devices:
+        return args.mesh_devices
+    from incremental_multimodal_medical_learning_ii_torch.utils.device import resolve_device
+
+    if resolve_device(args.device).type == "cpu":
+        return 1
+    import torch
+
+    return torch.cuda.device_count()
+
+
+def _driver_rank(main, argv):
+    """One rank of :func:`run_ranks`: the CLI's results, without the
+    trainer (it stays in the rank's process)."""
+    return {k: v for k, v in main(argv).items() if k != "trainer"}
+
+
+def run_ranks(main, argv, args):
+    """``main(argv)`` on :func:`mesh_size` ranks when that is above 1 and
+    this process is not a rank already; returns rank 0's results, else
+    ``None`` (the caller runs itself).  Raises ``ValueError("need n
+    devices, have m")`` before starting anything when the cards are too
+    few, and with a rank's traceback when one fails."""
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
+        current_mesh,
+        spawn_ranks,
+    )
+
+    n = mesh_size(args)
+    if n <= 1 or current_mesh() is not None:
+        return None
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return spawn_ranks(_driver_rank, n, args.device, main, argv)[0]
+
+
+def make_mesh(args):
+    """This rank's mesh inside :func:`run_ranks`' group; ``None`` for one
+    rank (``--mesh-devices 1`` is no mesh)."""
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
+        create_mesh,
+        current_mesh,
+    )
+
+    n = mesh_size(args)
+    return create_mesh(n) if n > 1 and current_mesh() is not None else None
 
 
 def prompt_mode_of(args) -> str:

@@ -66,6 +66,9 @@ def main(argv=None) -> dict:
                    "batch/epoch counts) with assertions disabled: times each gate")
     args = p.parse_args(argv)
     common.check_unported(args)
+    ranks = common.run_ranks(main, argv, args)
+    if ranks is not None:
+        return ranks
 
     # every gate hard-codes the reference's hyperparameters: warn if a flag
     # tried to override one, so a pass/fail is never attributed to settings
@@ -91,7 +94,8 @@ def main(argv=None) -> dict:
     from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
     from incremental_multimodal_medical_learning_ii_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    mesh = common.make_mesh(args)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     if args.dry_run or args.rehearsal:
         args.synthetic = True
     if args.rehearsal:
@@ -157,7 +161,8 @@ def main(argv=None) -> dict:
             image_adapter=False, text_adapter=False,
             eval_batch_size=1024, seed=args.seed,
         )
-        res = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device)
+        res = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device,
+                             mesh=mesh)
         check("zero-shot", res["test_zero"]["auroc_macro"], TARGETS["zero-shot"][1])
 
     if "joint" in args.gates:
@@ -169,7 +174,8 @@ def main(argv=None) -> dict:
             optim="adam", adapter="mlp", prompt_mode="max", seed=args.seed,
             fused_unit=args.fused_unit, plot_figures="off",
         )
-        res = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device)
+        res = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device,
+                             mesh=mesh)
         best = max(res[f"test_ep{e}"]["auroc_macro"] for e in range(1, cfg.epochs + 1))
         check("joint", best, TARGETS["joint"][1])
 
@@ -184,7 +190,8 @@ def main(argv=None) -> dict:
             optim="sgd", adapter="mlp", shared=True, seed=args.seed,
             fused_unit=args.fused_unit,
         )
-        res = run_class_incremental(cfg, bundle, bank, log_dir=args.log_dir, device=device)
+        res = run_class_incremental(cfg, bundle, bank, log_dir=args.log_dir, device=device,
+                                    mesh=mesh)
         curve = [res[f"test_task{t}"]["auroc_macro"] for t in range(1, 6)]
         print("class-inc curve:", " ".join(f"{v:.4f}" for v in curve),
               "(reference", " ".join(f"{v:.4f}" for v in CLASS_INC_CURVE) + ")")

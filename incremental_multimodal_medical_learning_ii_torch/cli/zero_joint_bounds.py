@@ -27,7 +27,11 @@ def main(argv=None) -> dict:
     p.add_argument("--folder-name", default="zero-and-joint")
     args = p.parse_args(argv)
     common.check_unported(args)
-    device = resolve_device(args.device)
+    ranks = common.run_ranks(main, argv, args)
+    if ranks is not None:
+        return ranks
+    mesh = common.make_mesh(args)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
 
     kw = common.config_kwargs(args)
     if args.epochs == 0 and not args.shared:
@@ -37,7 +41,8 @@ def main(argv=None) -> dict:
     print("run:", cfg.run_name())
     bundle = common.load_bundle(args)
     bank = common.build_bank(args, device)
-    results = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device)
+    results = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device,
+                             mesh=mesh)
     common.print_results(results)
     return results
 

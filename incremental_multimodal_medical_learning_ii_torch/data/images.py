@@ -85,6 +85,15 @@ def load_image(path: str | Path, percentiles: Optional[Tuple[float, float]] = No
     return image
 
 
+def image_shape(path: str | Path) -> Tuple[int, int]:
+    """(H, W) of an image file from its header alone (no decode): the shape
+    :func:`load_image_raw_uint8` returns."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return img.height, img.width
+
+
 def load_image_raw_uint8(path: str | Path) -> np.ndarray:
     """CheXpert extraction-path loader (``torchvision.io.read_image``
     semantics): raw uint8, grayscaled (PIL 'L'), no remap."""

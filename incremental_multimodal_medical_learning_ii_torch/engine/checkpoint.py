@@ -6,6 +6,10 @@ A checkpoint is a directory ``<directory>/<name>/`` holding ``state.pt``
 of CPU tensors), written through a temporary file and a rename.
 ``progress.json`` (completed units + the trainer's host-side stream state)
 is the JAX package's file, byte for byte in layout.
+
+On a data-parallel mesh (``parallel/mesh.py``) rank 0 writes and every
+rank then waits at a barrier, so no rank reads what rank 0 has not yet
+written.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from pathlib import Path
 import torch
 
 from incremental_multimodal_medical_learning_ii_torch.engine.steps import TrainState
+from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import barrier
 
 
 def _to(state: TrainState, device) -> TrainState:
@@ -26,12 +31,16 @@ def _to(state: TrainState, device) -> TrainState:
     ))
 
 
-def save_checkpoint(directory: str | Path, state: TrainState, name: str = "train_state") -> Path:
+def save_checkpoint(directory: str | Path, state: TrainState, name: str = "train_state",
+                    mesh=None) -> Path:
     path = Path(directory).absolute() / name
-    path.mkdir(parents=True, exist_ok=True)
-    tmp = path / "state.pt.tmp"
-    torch.save(_to(state, "cpu")._asdict(), tmp)
-    os.replace(tmp, path / "state.pt")
+    if mesh is None or mesh.rank == 0:
+        path.mkdir(parents=True, exist_ok=True)
+        tmp = path / "state.pt.tmp"
+        torch.save(_to(state, "cpu")._asdict(), tmp)
+        os.replace(tmp, path / "state.pt")
+    if mesh is not None:
+        barrier(mesh)
     return path
 
 
@@ -52,17 +61,21 @@ def restore_checkpoint(directory: str | Path, template: TrainState, name: str = 
 # ----------------------------------------------------------------------
 # Part/task-level resume for the incremental protocols
 # ----------------------------------------------------------------------
-def save_progress(directory: str | Path, completed: int, aux: dict | None = None) -> None:
+def save_progress(directory: str | Path, completed: int, aux: dict | None = None,
+                  mesh=None) -> None:
     """Record the completed part/task count and the trainer's host-side
     stream state, atomically (tmp + rename)."""
-    Path(directory).mkdir(parents=True, exist_ok=True)
-    payload: dict = {"completed": completed}
-    if aux is not None:
-        payload["aux"] = aux
-    path = Path(directory) / "progress.json"
-    tmp = path.with_suffix(".json.tmp")
-    tmp.write_text(json.dumps(payload))
-    os.replace(tmp, path)
+    if mesh is None or mesh.rank == 0:
+        Path(directory).mkdir(parents=True, exist_ok=True)
+        payload: dict = {"completed": completed}
+        if aux is not None:
+            payload["aux"] = aux
+        path = Path(directory) / "progress.json"
+        tmp = path.with_suffix(".json.tmp")
+        tmp.write_text(json.dumps(payload))
+        os.replace(tmp, path)
+    if mesh is not None:
+        barrier(mesh)
 
 
 def _read_progress(directory: str | Path) -> dict:

@@ -24,8 +24,19 @@ The port:
 
 The encode functions are plain functions of (model, tensors on the model's
 device); the model is an argument of each call, as the JAX package passes
-its parameters.  ``mesh=`` (multi-GPU) and ``trace_dir=`` raise "not yet
-ported".
+its parameters.  ``trace_dir=`` raises "not yet ported".
+
+``mesh=`` (``parallel/mesh.py``) runs the extraction on each rank of a
+data-parallel group, as the JAX package shards each batch over its mesh:
+every rank draws the same image stream, prepares and encodes its
+contiguous slice of every batch, and the embeddings are gathered back in
+order on every rank.  A stream from :func:`manifest_image_iterator` with
+``keep=rank_positions(mesh, batch_size)`` decodes only the rank's slice
+(the other images are zeros of their files' sizes, which still choose
+the batch's preprocess path), so the host's decode splits over the ranks
+as the encode does.  Rank 0 alone writes the shards; the resume point is
+rank 0's, broadcast.  A failed batch is not retried on a mesh: one rank
+re-running its collective alone would put the ranks out of step.
 """
 
 from __future__ import annotations
@@ -57,12 +68,17 @@ from incremental_multimodal_medical_learning_ii_torch.ops.preprocess import (
     preprocess_device_shared,
     preprocess_host,
 )
+from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
+    barrier,
+    gather_rows,
+    replicate,
+    shard_bounds,
+)
 from incremental_multimodal_medical_learning_ii_torch.utils.device import readback, resolve_device
 from incremental_multimodal_medical_learning_ii_torch.utils.retry import retry_call
 
 ImageLabel = Tuple[np.ndarray, np.ndarray]  # (H, W) uint8, (5,) float32
 
-MESH_NOT_PORTED = "not yet ported: extraction's mesh= is multi-GPU (ROADMAP Queue 1, item 8)"
 TRACE_NOT_PORTED = ("not yet ported: extraction's trace_dir= needs utils/profiling.py "
                     "(ROADMAP Queue 1, item 9)")
 
@@ -184,6 +200,17 @@ def _prefetch(gen, depth: int = 2):
         stop.set()
 
 
+def rank_positions(mesh, batch_size: int) -> Callable[[int], bool]:
+    """Whether the j-th image of a stream (counted from the first image it
+    yields) lies in this rank's slice of its batch on ``mesh``: the ``keep``
+    of :func:`manifest_image_iterator` for ``extract_embeddings(mesh=mesh,
+    batch_size=batch_size)``.  To resume, pass the stream as a callable of
+    the skip that starts it there (a run cut after a part batch refuses an
+    iterable on a mesh)."""
+    lo, hi = shard_bounds(mesh, batch_size)
+    return lambda j: lo <= j % batch_size < hi
+
+
 def extract_embeddings(
     images: Iterable[ImageLabel] | Callable[[int], Iterable[ImageLabel]],
     model: BioViLImageModel,
@@ -229,6 +256,9 @@ def extract_embeddings(
     ``stats``, if given a dict, is filled with wall-time totals:
     ``{"dispatch_s", "readback_s", "batches", "retried_batches"}``.
 
+    On a ``mesh`` (one call on every rank, with the same arguments),
+    ``batch_size`` must divide over the ranks; ``device`` is the rank's.
+
     ``readback_interval`` is the number of dispatched batches read back per
     device-to-host synchronisation.  On CUDA the run uses
     ``torch.backends.cudnn.benchmark = False`` (restored afterwards), so
@@ -240,10 +270,17 @@ def extract_embeddings(
         # 0 would make every flush a no-op: the window (and its host raw
         # buffers) grows unboundedly and no shard checkpoint is ever written
         raise ValueError(f"readback_interval must be >= 1, got {readback_interval}")
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     if trace_dir is not None:
         raise NotImplementedError(TRACE_NOT_PORTED)
+    if mesh is not None:
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size={batch_size} not divisible by the mesh's "
+                             f"{mesh.size} data shards")
+        device, retries = mesh.device, 0
+        lo, hi = shard_bounds(mesh, batch_size)
+    else:
+        lo, hi = 0, batch_size
+    writes = mesh is None or mesh.rank == 0
     device = resolve_device(device)
     if stats is not None:
         stats.update(dispatch_s=0.0, readback_s=0.0, batches=0, retried_batches=0)
@@ -278,7 +315,9 @@ def extract_embeddings(
         shared_matrices: dict = {}  # (h, w) -> its (w_h, w_w) on the device
 
         def prepare(batch_imgs):
+            # the path is the whole batch's; the pixels are this rank's slice
             shapes = {im.shape for im in batch_imgs}
+            batch_imgs = batch_imgs[lo:hi]
             if len(shapes) == 1:
                 hw = next(iter(shapes))
                 sp = shared_plans.get(hw)
@@ -305,7 +344,8 @@ def extract_embeddings(
         encode_pre = make_encode_preprocessed_fn(dtype=dtype, int8=int8)
 
         def prepare(batch_imgs):
-            return host(np.stack([preprocess_host(im, size=size, crop=crop) for im in batch_imgs]))
+            return host(np.stack([preprocess_host(im, size=size, crop=crop)
+                                  for im in batch_imgs[lo:hi]]))
 
         def run(prepared):
             return encode_pre(model, up(prepared))
@@ -317,11 +357,18 @@ def extract_embeddings(
         if store is None:
             raise ValueError("resume=True requires a store")
         existing = store.total_rows()
+        if mesh is not None:  # rank 0's resume point
+            existing = int(replicate(mesh, torch.tensor([existing], device=device))[0])
         if existing:
             prior = store.glue()
             all_embs.append(prior.embeddings)
             all_labels.append(prior.labels)
             skip = existing
+    if mesh is not None and skip % batch_size and not callable(images):
+        # a stream's rank_positions count from its first image: dropping a
+        # part of a batch would shift every rank's slice
+        raise ValueError(f"resuming at {skip} images, not a multiple of batch_size="
+                         f"{batch_size}, on a mesh needs images as a callable of the skip")
 
     def prepared_batches():
         if callable(images):
@@ -345,7 +392,7 @@ def extract_embeddings(
         seen += n
         all_embs.append(embs_np)
         all_labels.append(labels)
-        if store is not None:
+        if store is not None and writes:
             pending_embs.append(embs_np)
             pending_labels.append(labels)
             if seen - written >= checkpoint_interval:
@@ -353,14 +400,19 @@ def extract_embeddings(
                 written = seen
                 pending_embs, pending_labels = [], []
 
+    def encode(prepared):
+        if mesh is None:
+            return run(prepared)
+        return gather_rows(mesh, run(prepared).float(), batch_size)
+
     def dispatch(prepared):
-        """run() with retry: an error re-dispatches with exponential backoff."""
+        """encode() with retry: an error re-dispatches with exponential backoff."""
 
         def count(_attempt, _e):
             if stats is not None:
                 stats["retried_batches"] += 1
 
-        return retry_call(lambda: run(prepared), retries, retry_backoff_s, on_retry=count)
+        return retry_call(lambda: encode(prepared), retries, retry_backoff_s, on_retry=count)
 
     def flush(window, k=None):
         """One device-to-host transfer for the oldest ``k`` dispatched
@@ -409,28 +461,40 @@ def extract_embeddings(
         torch.backends.cudnn.benchmark = benchmark
     if store is not None and pending_embs:
         store.write_shard(written, np.concatenate(pending_embs), np.concatenate(pending_labels))
+    if mesh is not None:
+        barrier(mesh)  # rank 0's shards are on disk before any rank returns
     if not all_embs:
         return EmbeddingDataset(np.zeros((0, 128), np.float32), np.zeros((0, 5), np.float32))
     return EmbeddingDataset(np.concatenate(all_embs), np.concatenate(all_labels))
 
 
 def manifest_image_iterator(
-    manifest, loader: Optional[Callable] = None, workers: int = 0, start: int = 0
+    manifest, loader: Optional[Callable] = None, workers: int = 0, start: int = 0,
+    keep: Optional[Callable[[int], bool]] = None,
 ) -> Iterator[ImageLabel]:
     """Iterate (raw grayscale uint8, label) pairs from a ChexpertManifest.
 
     ``workers > 0`` decodes with a process pool (the reference's
     ``num_workers=4`` DataLoader parallelism, ``DataRetrieval.py:151-153``);
     order is preserved.  ``start`` skips the first N images without
-    decoding them (extraction resume).
+    decoding them (extraction resume).  Where ``keep(j)`` is false for the
+    j-th image yielded, it is not decoded: zeros of its file's size (read
+    from the header; the loader must keep that size) stand in for it
+    (:func:`rank_positions`: a rank of a mesh decodes its slices only).
     """
     from incremental_multimodal_medical_learning_ii_torch.data.images import (
+        image_shape,
         load_image_raw_uint8,
     )
 
     labels = manifest.labels()[start:]
     paths = manifest.image_paths()[start:]
     loader = loader or load_image_raw_uint8
+    keep = keep or (lambda j: True)
+
+    def stand_in(path):
+        return np.zeros(image_shape(path), np.uint8)
+
     if workers:
         # the pool runs whatever loader was given (it must be picklable: a
         # module-level function, not a lambda).  NEVER fork here: the
@@ -444,8 +508,9 @@ def manifest_image_iterator(
         methods = multiprocessing.get_all_start_methods()
         ctx = multiprocessing.get_context("forkserver" if "forkserver" in methods else "spawn")
         with ctx.Pool(workers) as pool:
-            for idx, img in enumerate(pool.imap(loader, paths, chunksize=8)):
-                yield img, labels[idx]
+            decoded = pool.imap(loader, (p for j, p in enumerate(paths) if keep(j)), chunksize=8)
+            for idx, path in enumerate(paths):
+                yield (next(decoded) if keep(idx) else stand_in(path)), labels[idx]
         return
     for idx, path in enumerate(paths):
-        yield loader(path), labels[idx]
+        yield (loader(path) if keep(idx) else stand_in(path)), labels[idx]

@@ -9,6 +9,11 @@ with threshold scheduling (``threshold += adder`` before every epoch, in
 the same floating-point order as the JAX package), profCL's snapshot and
 reset, per-unit checkpoints and the final save.  Exceptions propagate.
 
+Every ``run_*`` takes ``mesh=`` (``parallel/mesh.py``) and then runs on
+each rank of a data-parallel group: rank 0 alone writes the event file,
+checkpoints and ``progress.json``, every rank waits for it at a barrier,
+and a restored state is broadcast from rank 0.
+
 Crash contract of the incremental protocols: the final save runs only on
 success; on a crash the partial-unit TB events are discarded and the last
 unit-boundary checkpoint (``_save_unit``) stays the durable state, so
@@ -37,6 +42,7 @@ from incremental_multimodal_medical_learning_ii_torch.engine.checkpoint import (
 from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
 from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import TBWriter
 from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import PromptBank
+from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import replicate
 from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     ContinualLearning,
     ExperimentConfig,
@@ -66,9 +72,17 @@ def _make_writer(cfg: ExperimentConfig, log_dir: Optional[str]) -> TBWriter:
     return TBWriter(str(Path(log_dir) / cfg.run_name()))
 
 
+def _rank_writer(cfg: ExperimentConfig, log_dir: Optional[str], mesh) -> TBWriter:
+    """The run's writer; on a rank above 0 it writes nothing (one stream)."""
+    writer = _make_writer(cfg, log_dir)
+    if mesh is not None:
+        writer.rank = mesh.rank
+    return writer
+
+
 def _save_final(trainer: Trainer, writer: TBWriter) -> None:
     if trainer.cfg.trains_anything and writer.log_dir is not None:
-        save_checkpoint(writer.log_dir, trainer.state)
+        save_checkpoint(writer.log_dir, trainer.state, mesh=trainer.mesh)
 
 
 def _maybe_resume(trainer: Trainer, writer: TBWriter, resume: bool):
@@ -88,6 +102,8 @@ def _maybe_resume(trainer: Trainer, writer: TBWriter, resume: bool):
                 raise
             # old-format progress pointing at a since-cleaned staged dir
             trainer.state = restore_checkpoint(writer.log_dir, trainer.state)
+        if trainer.mesh is not None:
+            trainer.state = replicate(trainer.mesh, trainer.state)
         if aux is not None:
             try:
                 trainer.load_aux_state(aux)
@@ -109,16 +125,18 @@ def _save_unit(trainer: Trainer, writer: TBWriter, completed: int, extra: Option
     points at it (a crash between leaves unit N-1 intact)."""
     if trainer.cfg.trains_anything and writer.log_dir is not None:
         name = f"train_state_unit{completed}"
-        save_checkpoint(writer.log_dir, trainer.state, name=name)
+        save_checkpoint(writer.log_dir, trainer.state, name=name, mesh=trainer.mesh)
         writer.commit()
         aux = trainer.aux_state()
         if extra:
             aux.update(extra)
         aux["state_name"] = name
-        save_progress(writer.log_dir, completed, aux)  # the atomic commit point
-        for stale in Path(writer.log_dir).glob("train_state_unit*"):
-            if stale.name != name:
-                shutil.rmtree(stale, ignore_errors=True)
+        # the atomic commit point
+        save_progress(writer.log_dir, completed, aux, mesh=trainer.mesh)
+        if trainer.mesh is None or trainer.mesh.rank == 0:
+            for stale in Path(writer.log_dir).glob("train_state_unit*"):
+                if stale.name != name:
+                    shutil.rmtree(stale, ignore_errors=True)
     else:
         writer.commit()
 
@@ -130,11 +148,12 @@ def run_zero_joint(
     log_dir: Optional[str] = None,
     device=None,
     trace_dir: Optional[str] = None,
+    mesh=None,
 ) -> Dict[str, Dict[str, float]]:
     """Zero-shot (epochs=0) or joint-train upper bound."""
     _check_trace(trace_dir)
-    writer = _make_writer(cfg, log_dir)
-    trainer = Trainer(cfg, bank, writer, device)
+    writer = _rank_writer(cfg, log_dir, mesh)
+    trainer = Trainer(cfg, bank, writer, device, mesh)
     results: Dict[str, Dict[str, float]] = {}
     threshold = cfg.threshold
     try:
@@ -204,10 +223,11 @@ def run_data_incremental(
     device=None,
     resume: bool = False,
     trace_dir: Optional[str] = None,
+    mesh=None,
 ) -> Dict[str, Dict[str, float]]:
     _check_trace(trace_dir)
-    writer = _make_writer(cfg, log_dir)
-    trainer = Trainer(cfg, bank, writer, device)
+    writer = _rank_writer(cfg, log_dir, mesh)
+    trainer = Trainer(cfg, bank, writer, device, mesh)
     parts = split_contiguous(data.train, cfg.parts)
     results: Dict[str, Dict[str, float]] = {}
     skip, _ = _maybe_resume(trainer, writer, resume)
@@ -270,10 +290,11 @@ def run_class_incremental(
     n_tasks: int = 5,
     resume: bool = False,
     trace_dir: Optional[str] = None,
+    mesh=None,
 ) -> Dict[str, Dict[str, float]]:
     _check_trace(trace_dir)
-    writer = _make_writer(cfg, log_dir)
-    trainer = Trainer(cfg, bank, writer, device)
+    writer = _rank_writer(cfg, log_dir, mesh)
+    trainer = Trainer(cfg, bank, writer, device, mesh)
     if cfg.mode == "class-pos-neg":
         tasks = split_contiguous(data.train, 5)  # Trainer.py:350-351
     elif cfg.mode == "class-pos":

@@ -28,6 +28,19 @@ passes run under ``torch.no_grad()`` and score through
 cosine kernel (one launch a batch in MEAN/SINGLE, two in MAX), on CPU
 tensors its plain version.  The device decides, as ``_eval_uses_pallas``
 does in the JAX package.
+
+Every builder takes ``mesh=`` (``parallel/mesh.py``): the functions then
+run on each rank of a data-parallel group, with the same replicated
+operands everywhere.  A train step takes the rank's rows of the global
+batch; its loss, the MAX-gap averages and the empty-batch guard divide by
+or test the global batch's mask counts, which every rank reads off the
+replicated batch; one ``all_reduce`` sums the gradients, the loss and the
+gap sums, so every rank applies the same update.  An eval batch is scored
+on the rank's rows through the mesh variant of the kernel
+(``pairwise_cosine_sharded``) and gathered before its loss, so every
+output is the whole batch's.  The JAX package's mesh eval turns its Pallas
+kernel off (``pallas_call`` under whole-array ``jit`` rejects sharded
+operands); here each rank holds plain local tensors, so the kernel runs.
 """
 
 from __future__ import annotations
@@ -49,6 +62,10 @@ from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import (
     PromptBank,
     apply_text_adapter_to_bank,
     score_embeddings,
+)
+from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
+    all_reduce_sum,
+    batch_rows,
 )
 from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     ContinualLearning,
@@ -169,7 +186,21 @@ def _forward(pair, params, embs, bank, cfg, use_kernel: bool = False):
     )
 
 
-def _train_core(pair: AdapterPair, cfg: ExperimentConfig, guard_empty: bool = False) -> Callable:
+def _sum_over_ranks(mesh, grads: Params, parts: List[torch.Tensor]):
+    """The gradients and the other per-rank partial sums, summed over the
+    ranks with one all_reduce of one flat buffer."""
+    names = list(grads)
+    flat = torch.cat([grads[k].reshape(-1) for k in names] + [p.reshape(-1) for p in parts])
+    all_reduce_sum(mesh, flat)
+    out, start = [], 0
+    for t in [grads[k] for k in names] + parts:
+        out.append(flat[start:start + t.numel()].view(t.shape))
+        start += t.numel()
+    return dict(zip(names, out[:len(names)])), out[len(names):]
+
+
+def _train_core(pair: AdapterPair, cfg: ExperimentConfig, guard_empty: bool = False,
+                mesh=None) -> Callable:
     """``core(state, embs, labels, elem_mask, class_mask, bank, threshold)
     -> (state, metrics)``: forward, masked BCE, backward, update, optional
     myCL reset, monitor metrics (device tensors).
@@ -178,36 +209,53 @@ def _train_core(pair: AdapterPair, cfg: ExperimentConfig, guard_empty: bool = Fa
     state (params, moments, count, step): a zero-grad Adam step is not one
     (its moments decay and stale momentum moves the weights).  The select
     is ``torch.where`` on a device predicate, so no value is read back; for
-    a real batch it is the identity, bit for bit."""
+    a real batch it is the identity, bit for bit.
+
+    On a ``mesh`` the batch operands are the global batch and the step
+    trains on this rank's rows of it (see the module's docstring)."""
     use_cl = cfg.continual_learning == ContinualLearning.MY_CL
     applications = 2 if cfg.shared else 1  # SHARED: the reference resets its aliased module twice
 
     def core(state: TrainState, embs, labels, elem_mask, class_mask, bank, threshold):
         names = list(state.params)
+        n_rows = mask_sum = None  # the global batch's counts, on a mesh
+        if mesh is not None:
+            n_rows = torch.sum(elem_mask)
+            mask_sum = torch.sum(elem_mask[:, None] * class_mask[None, :])
+            embs, labels, elem_mask = (batch_rows(mesh, t) for t in (embs, labels, elem_mask))
         leaves = [state.params[k].detach().requires_grad_(True) for k in names]
         with torch.enable_grad():
             out = _forward(pair, dict(zip(names, leaves)), embs, bank, cfg)
             lbl = change_labels(labels) if cfg.change_labels else labels
-            loss = bce_with_logits(out.logits, lbl, elem_mask[:, None] * class_mask[None, :])
+            loss = bce_with_logits(out.logits, lbl, elem_mask[:, None] * class_mask[None, :],
+                                   mask_sum=mask_sum)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with torch.no_grad():
             grads = {k: torch.zeros_like(p) if g is None else g for k, p, g in zip(names, leaves, grads)}
+            loss = loss.detach()
+            gap_sums = []
+            if out.max_mean_gap is not None:
+                # summed over the real rows; either the (C,) per-class gaps
+                # or their mean over the trained classes
+                gaps = out.max_mean_gap.detach()
+                row_w = elem_mask[:, None]
+                gap_sums = [torch.sum(gaps[0] * row_w, dim=0), torch.sum(gaps[1] * row_w, dim=0)]
+            if mesh is not None:
+                grads, (loss, *gap_sums) = _sum_over_ranks(mesh, grads, [loss, *gap_sums])
+            else:
+                n_rows = torch.sum(elem_mask)
             params, mu, nu, count = optimizer_update(cfg, state, grads)
-            metrics: Dict[str, torch.Tensor] = {"loss": loss.detach()}
+            metrics: Dict[str, torch.Tensor] = {"loss": loss}
             if use_cl:
                 params, n_reset, n_updated = weight_reset(
                     params, state.params, threshold, applications=applications)
                 metrics["n_reset"] = n_reset
                 metrics["n_updated"] = n_updated
-            if out.max_mean_gap is not None:
-                # averaged over the real rows; either the (C,) per-class gaps
-                # or their mean over the trained classes
-                gaps = out.max_mean_gap.detach()
+            if gap_sums:
                 denom_c = torch.clamp(torch.sum(class_mask), min=1.0)
-                denom_r = torch.clamp(torch.sum(elem_mask), min=1.0)
-                row_w = elem_mask[:, None]
-                gap_pos = torch.sum(gaps[0] * row_w, dim=0) / denom_r
-                gap_neg = torch.sum(gaps[1] * row_w, dim=0) / denom_r
+                denom_r = torch.clamp(n_rows, min=1.0)
+                gap_pos = gap_sums[0] / denom_r
+                gap_neg = gap_sums[1] / denom_r
                 if cfg.max_gap_per_class:
                     metrics["max_mean_gap_pos_vec"] = gap_pos
                     metrics["max_mean_gap_neg_vec"] = gap_neg
@@ -216,16 +264,16 @@ def _train_core(pair: AdapterPair, cfg: ExperimentConfig, guard_empty: bool = Fa
                     metrics["max_mean_gap_neg"] = torch.sum(gap_neg * class_mask) / denom_c
             out_state = TrainState(params, mu, nu, count, state.lr, state.step + 1)
             if guard_empty:
-                out_state = _select(torch.sum(elem_mask) > 0, out_state, state)
+                out_state = _select(n_rows > 0, out_state, state)
         return out_state, metrics
 
     return core
 
 
-def build_train_step(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+def build_train_step(pair: AdapterPair, cfg: ExperimentConfig, mesh=None) -> Callable:
     """step(state, embs, labels, elem_mask, class_mask, bank, threshold)
     -> (state, metrics dict)."""
-    return _train_core(pair, cfg)
+    return _train_core(pair, cfg, mesh=mesh)
 
 
 def _stack(items: Sequence):
@@ -273,13 +321,13 @@ def _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, thresho
     return state, _stack(per_batch)
 
 
-def build_fused_epoch(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+def build_fused_epoch(pair: AdapterPair, cfg: ExperimentConfig, mesh=None) -> Callable:
     """A whole training epoch over device-resident data:
     ``epoch(state, embs, labels, valid, bank, class_mask, threshold, perm)
     -> (state, stacked metrics)``, the data padded to whole batches and
     ``perm`` the epoch's (N_pad,) row order (ignored, and may be empty,
     with ``shuffle_train=False``)."""
-    core = _train_core(pair, cfg)
+    core = _train_core(pair, cfg, mesh=mesh)
 
     def epoch(state, embs, labels, valid, bank, class_mask, threshold, perm):
         return _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, threshold, perm)
@@ -299,6 +347,7 @@ def build_fused_unit(
     cfg: ExperimentConfig,
     use_prof: bool = False,
     eval_mode: Optional[str] = None,
+    mesh=None,
 ) -> Callable:
     """A whole incremental unit (all E epochs of a data-inc part or a
     class-inc task) as one call: ``unit(state, embs, labels, valid, bank,
@@ -315,13 +364,13 @@ def build_fused_unit(
     epoch (the joint driver), returning ``(state, stacked, evals,
     epoch_states)`` with (E, ...) eval outputs and the post-epoch states
     stacked the same way."""
-    core = _train_core(pair, cfg)
+    core = _train_core(pair, cfg, mesh=mesh)
     if eval_mode not in (None, "final", "per_epoch"):
         raise ValueError(f"unknown eval_mode {eval_mode!r}")
 
     def _eval_both(params, bank, val_ops, test_ops):
-        return (_fused_eval_pass(pair, cfg, params, *val_ops, bank),
-                _fused_eval_pass(pair, cfg, params, *test_ops, bank))
+        return (_fused_eval_pass(pair, cfg, params, *val_ops, bank, mesh=mesh),
+                _fused_eval_pass(pair, cfg, params, *test_ops, bank, mesh=mesh))
 
     def unit(state, embs, labels, valid, bank, class_mask, thresholds, perms, *eval_ops):
         if len(eval_ops) != (6 if eval_mode else 0):
@@ -350,7 +399,8 @@ def build_fused_unit(
     return unit
 
 
-def build_fused_run(pair: AdapterPair, cfg: ExperimentConfig, use_prof: bool = False) -> Callable:
+def build_fused_run(pair: AdapterPair, cfg: ExperimentConfig, use_prof: bool = False,
+                    mesh=None) -> Callable:
     """A whole incremental run, every unit's epochs and its post-unit
     val/test eval passes, as one call: ``run(state, embs (U,n_pad,D),
     labels (U,n_pad,C), valid (U,n_pad), bank, class_masks (U,C),
@@ -361,7 +411,7 @@ def build_fused_run(pair: AdapterPair, cfg: ExperimentConfig, use_prof: bool = F
     (U, ...) tensors.  Units of uneven length are padded to the largest
     with fully masked batches, which the step guard makes exact no-ops; a
     unit whose resets are off rides in with zero thresholds."""
-    core = _train_core(pair, cfg, guard_empty=True)
+    core = _train_core(pair, cfg, guard_empty=True, mesh=mesh)
 
     def run(state, embs, labels, valid, bank, class_masks, thresholds, perms,
             val_embs, val_labels, val_valid, test_embs, test_labels, test_valid):
@@ -377,8 +427,10 @@ def build_fused_run(pair: AdapterPair, cfg: ExperimentConfig, use_prof: bool = F
                 per_epoch.append(stacked)
             unit_stacked.append(_stack(per_epoch))
             unit_evals.append((
-                _fused_eval_pass(pair, cfg, state.params, val_embs, val_labels, val_valid, bank),
-                _fused_eval_pass(pair, cfg, state.params, test_embs, test_labels, test_valid, bank),
+                _fused_eval_pass(pair, cfg, state.params, val_embs, val_labels, val_valid, bank,
+                                 mesh=mesh),
+                _fused_eval_pass(pair, cfg, state.params, test_embs, test_labels, test_valid, bank,
+                                 mesh=mesh),
             ))
             unit_states.append(state)
         return state, _stack(unit_stacked), _stack(unit_evals), _stack(unit_states)
@@ -409,14 +461,14 @@ def build_epoch_reset(cfg: ExperimentConfig) -> Callable:
         params, snapshot, threshold, applications=applications)
 
 
-def build_eval_step(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+def build_eval_step(pair: AdapterPair, cfg: ExperimentConfig, mesh=None) -> Callable:
     """step(params, embs, labels, elem_mask, bank) -> (loss, scores, preds,
     logits), all five classes scored (the reference evaluates the full
     label set in every regime, ``Trainer.py:772-866``)."""
 
     @torch.no_grad()
     def step(params, embs, labels, elem_mask, bank):
-        out = _forward(pair, params, embs, bank, cfg, use_kernel=True)
+        out = _score_batch(pair, cfg, params, embs, adapt_bank(pair, params, bank), mesh)
         lbl = change_labels(labels) if cfg.change_labels else labels
         loss = bce_with_logits(out.logits, lbl, elem_mask[:, None].expand_as(lbl))
         return loss, out.scores, out.preds, out.logits
@@ -424,16 +476,27 @@ def build_eval_step(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
     return step
 
 
-def build_fused_eval(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+def build_fused_eval(pair: AdapterPair, cfg: ExperimentConfig, mesh=None) -> Callable:
     """The whole eval pass over device-resident data: (params, embs (Npad,D),
     labels, valid, bank) -> (losses (n_b,), scores (Npad,C), preds
     (Npad,C)), in the reference's fixed eval batches (Trainer.py:241-246)."""
     return lambda params, embs, labels, valid, bank: _fused_eval_pass(
-        pair, cfg, params, embs, labels, valid, bank)
+        pair, cfg, params, embs, labels, valid, bank, mesh=mesh)
+
+
+def _score_batch(pair, cfg, params, embs, adapted, mesh):
+    """One eval batch through the kernel; on a mesh, this rank's rows
+    through its mesh variant, the outputs gathered to the whole batch."""
+    rows = embs.shape[0]
+    if mesh is not None:
+        embs = batch_rows(mesh, embs)
+    return score_embeddings(apply_image(pair, params, embs), adapted, cfg.prompt_mode,
+                            cfg.train_logit_diff, cfg.pred_logit_diff, use_kernel=True,
+                            mesh=mesh, rows=rows)
 
 
 @torch.no_grad()
-def _fused_eval_pass(pair, cfg, params, embs, labels, valid, bank):
+def _fused_eval_pass(pair, cfg, params, embs, labels, valid, bank, mesh=None):
     bs = cfg.eval_batch_size
     if embs.shape[0] % bs:
         raise ValueError(f"{embs.shape[0]} rows not a multiple of eval batch {bs}; "
@@ -443,10 +506,7 @@ def _fused_eval_pass(pair, cfg, params, embs, labels, valid, bank):
     losses: List[torch.Tensor] = []
     scores, preds = [], []
     for start in range(0, embs.shape[0], bs):
-        out = score_embeddings(
-            apply_image(pair, params, embs[start:start + bs]), adapted, cfg.prompt_mode,
-            cfg.train_logit_diff, cfg.pred_logit_diff, use_kernel=True,
-        )
+        out = _score_batch(pair, cfg, params, embs[start:start + bs], adapted, mesh)
         lbl = labels[start:start + bs]
         lbl = change_labels(lbl) if cfg.change_labels else lbl
         losses.append(bce_with_logits(out.logits, lbl, valid[start:start + bs, None].expand_as(lbl)))

@@ -20,10 +20,17 @@ unit with its evals).  All three draw the epoch orders from the same
 counters (:meth:`Trainer._epoch_perm`) and log the same streams; metrics
 are read back once per epoch, unit or run.
 
+``mesh=`` (``parallel/mesh.py``) runs the trainer on each rank of a
+data-parallel group, as the JAX ``Trainer(mesh=)`` runs on a device mesh:
+every rank holds the replicated state, bank and data, draws the same epoch
+orders (nothing is seeded by rank) and trains on its rows of every batch;
+batches are padded to a multiple of the mesh size, and the eval passes
+gather their scores before any metric, so every rank computes the same
+metrics.  Events are written by rank 0 only (the protocols give the other
+ranks' writers ``rank``).
+
 Not ported here: figures (matplotlib is absent on the card's machine: a
-configuration that asks for them raises), the mesh (multi-GPU is ROADMAP
-slice 7) and the native mmap store (slice 4; its ``iterate_batches``
-hook stays).
+configuration that asks for them raises).
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import (
 )
 from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair
 from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import PromptBank
+from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import replicate
 from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     NUM_CLASSES,
     ContinualLearning,
@@ -96,11 +104,15 @@ class Trainer:
         bank: PromptBank,
         writer: Optional[TBWriter] = None,
         device=None,
+        mesh=None,
     ):
         if cfg.plot_figures != "off":
             raise NotImplementedError(FIGURES_NOT_PORTED)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not this rank's {mesh.device}")
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.writer = writer or TBWriter(None)
         self.class_names = list(cfg.class_names)
 
@@ -112,10 +124,14 @@ class Trainer:
         )
         modules = self.pair.init(torch.Generator().manual_seed(cfg.seed))
         self.state = init_train_state(params_from_modules(modules, self.device), cfg, self.device)
-        self._train_step = build_train_step(self.pair, cfg) if cfg.trains_anything else None
-        self._eval_step = build_eval_step(self.pair, cfg)
+        self._train_step = build_train_step(self.pair, cfg, mesh) if cfg.trains_anything else None
+        self._eval_step = build_eval_step(self.pair, cfg, mesh)
         self._epoch_reset = build_epoch_reset(cfg)
         self.bank = bank.to(self.device)
+        if mesh is not None:
+            self.state = replicate(mesh, self.state)
+            self.bank = replicate(mesh, self.bank)
+        self._pad_multiple = 1 if mesh is None else mesh.size
 
         self._snapshot = None  # profCL epoch snapshot
         self._shuffle_rng = np.random.default_rng(cfg.seed)
@@ -134,9 +150,10 @@ class Trainer:
         self._py_step = 0  # host-side mirror of state.step (for LR logging)
 
         self._fused_epoch = (
-            build_fused_epoch(self.pair, cfg) if cfg.trains_anything and cfg.fused_epoch else None
+            build_fused_epoch(self.pair, cfg, mesh) if cfg.trains_anything and cfg.fused_epoch
+            else None
         )
-        self._fused_eval = build_fused_eval(self.pair, cfg) if cfg.fused_epoch else None
+        self._fused_eval = build_fused_eval(self.pair, cfg, mesh) if cfg.fused_epoch else None
         # device data, keyed by (id(dataset), batch size) and evicted by a
         # weakref finaliser when the dataset dies (a reused id never hits)
         self._device_data_cache: dict = {}
@@ -216,13 +233,15 @@ class Trainer:
             # a per-epoch seed from the persistent shuffle stream, so every
             # epoch reshuffles and resume stays bit-reproducible
             seed = int(self._shuffle_rng.integers(2**31)) if shuffle else self.cfg.seed
-            return dataset.iterate_batches(batch_size, shuffle=shuffle, seed=seed, pad_multiple=1)
+            return dataset.iterate_batches(batch_size, shuffle=shuffle, seed=seed,
+                                           pad_multiple=self._pad_multiple)
         order = None
         if shuffle and self.permutation_source is not None:
             order = self._injected_permutation(len(dataset))
         return iterate_batches(
             dataset, batch_size, shuffle=shuffle,
             rng=self._shuffle_rng if shuffle else None, order=order,
+            pad_multiple=self._pad_multiple,
         )
 
     def _injected_permutation(self, n: int) -> np.ndarray:
@@ -341,7 +360,8 @@ class Trainer:
 
     def _device_data(self, dataset: EmbeddingDataset, bs: Optional[int] = None):
         """Upload a dataset once, padded to whole batches with a validity
-        mask; reused by every epoch and eval pass that touches it."""
+        mask; reused by every epoch and eval pass that touches it.  On a
+        mesh every rank holds all of it (see ``parallel/mesh.py``)."""
         bs = bs or self.cfg.batch_size
         did = id(dataset)
         key = (did, bs)
@@ -494,7 +514,7 @@ class Trainer:
         key = (use_prof, eval_mode)
         if key not in self._fused_unit_cache:
             self._fused_unit_cache[key] = build_fused_unit(
-                self.pair, self.cfg, use_prof=use_prof, eval_mode=eval_mode)
+                self.pair, self.cfg, use_prof=use_prof, eval_mode=eval_mode, mesh=self.mesh)
         return self._fused_unit_cache[key]
 
     def _dispatch_fused_unit(self, dataset, eff_thresholds, use_prof, eval_mode, eval_data,
@@ -596,7 +616,8 @@ class Trainer:
 
     def _get_fused_run(self, use_prof: bool):
         if use_prof not in self._fused_run_cache:
-            self._fused_run_cache[use_prof] = build_fused_run(self.pair, self.cfg, use_prof=use_prof)
+            self._fused_run_cache[use_prof] = build_fused_run(self.pair, self.cfg, use_prof=use_prof,
+                                                              mesh=self.mesh)
         return self._fused_run_cache[use_prof]
 
     def train_incremental_run(

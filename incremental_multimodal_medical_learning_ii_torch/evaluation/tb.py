@@ -15,6 +15,11 @@ Events are buffered and reach the file only on :meth:`TBWriter.commit`
 (the protocols commit at every unit boundary and on close);
 :meth:`TBWriter.discard` drops the buffer, so a crashed unit leaves no
 partial events and a resumed run's stream equals an uninterrupted one's.
+
+On a data-parallel mesh every rank logs the same scalars; a writer whose
+``rank`` is set above 0 (``engine/protocols.py`` sets the rank's) keeps
+none and writes no file, so a run has one event stream, as the JAX
+package's one process writes it.
 """
 
 from __future__ import annotations
@@ -156,6 +161,7 @@ class TBWriter:
 
     def __init__(self, log_dir: Optional[str]):
         self.log_dir = log_dir
+        self.rank = 0
         self._file = None
         self._pending: List[Tuple[str, float, int]] = []
 
@@ -164,7 +170,7 @@ class TBWriter:
         return self.log_dir is not None
 
     def add_scalar(self, tag: str, value, step: int) -> None:
-        if self.enabled:
+        if self.enabled and self.rank == 0:
             self._pending.append((tag, float(value), int(step)))
 
     def add_figure(self, tag: str, figure, step: int = 0) -> None:
@@ -182,7 +188,7 @@ class TBWriter:
 
     def commit(self) -> None:
         """Write every buffered event to the event file and flush."""
-        if not self.enabled:
+        if not self.enabled or self.rank > 0:
             return
         if self._file is None:
             self._file = self._open()

@@ -15,7 +15,9 @@ prompt-embedding banks by cosine similarity, as the reference does
 
 ``use_kernel`` sends the cosine contraction through the fused CUDA kernel
 (``ops/fused_cosine.py``), the counterpart of the JAX ``use_pallas``; it
-has no backward, so only no-grad paths take it.
+has no backward, so only no-grad paths take it.  ``mesh`` sends it through
+the mesh variant (``pairwise_cosine_sharded``): the image embeddings are
+this rank's rows of a batch, and every output covers the whole batch.
 """
 
 from __future__ import annotations
@@ -84,7 +86,14 @@ def apply_text_adapter_to_bank(adapter_fn, params, bank: PromptBank) -> PromptBa
     )
 
 
-def _pairwise(x: torch.Tensor, t: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+def _pairwise(x: torch.Tensor, t: torch.Tensor, use_kernel: bool, mesh=None,
+              rows: Optional[int] = None) -> torch.Tensor:
+    if mesh is not None:
+        from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+            pairwise_cosine_sharded,
+        )
+
+        return pairwise_cosine_sharded(mesh, x, t, rows)
     if use_kernel:
         from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
             fused_pairwise_cosine,
@@ -99,8 +108,11 @@ def _reduced_similarities(
     bank: PromptBank,
     prompt_mode: PromptMode,
     use_kernel: bool = False,
+    mesh=None,
+    rows: Optional[int] = None,
 ):
     """Return ((B,C) pos, (B,C) neg, optional (2,B,C) max-mean gaps)."""
+    use_kernel = use_kernel or mesh is not None
     if PromptMode(prompt_mode) == PromptMode.MAX:
         c, p, d = bank.pos.shape
 
@@ -113,9 +125,8 @@ def _reduced_similarities(
             unit = (torch.arange(d, device=emb.device) == 0).to(emb.dtype)
             emb = torch.where(valid[..., None], emb, unit)
             if use_kernel:
-                sims = _pairwise(image_embs, emb.reshape(c * p, d), True).reshape(
-                    image_embs.shape[0], c, p
-                )
+                sims = _pairwise(image_embs, emb.reshape(c * p, d), True, mesh, rows)
+                sims = sims.reshape(sims.shape[0], c, p)
             else:
                 sims = cosine_to_banks(image_embs, emb)  # (B, C, P)
             neg_inf = torch.finfo(sims.dtype).min
@@ -134,7 +145,7 @@ def _reduced_similarities(
     neg_mean = masked_mean(bank.neg, bank.neg_count)
     if use_kernel:
         c = pos_mean.shape[0]
-        both = _pairwise(image_embs, torch.cat([pos_mean, neg_mean]), True)
+        both = _pairwise(image_embs, torch.cat([pos_mean, neg_mean]), True, mesh, rows)
         return both[:, :c], both[:, c:], None
     return pairwise_cosine(image_embs, pos_mean), pairwise_cosine(image_embs, neg_mean), None
 
@@ -146,10 +157,14 @@ def score_embeddings(
     train_logit_diff: bool,
     pred_logit_diff: bool,
     use_kernel: bool = False,
+    mesh=None,
+    rows: Optional[int] = None,
 ) -> ScorerOutput:
-    """Full scorer: train logits, eval scores, predictions for all classes."""
+    """Full scorer: train logits, eval scores, predictions for all classes.
+    With ``mesh``, ``image_embs`` are this rank's rows of a ``rows``-row
+    batch and the outputs are the whole batch's (no-grad only)."""
     pos_sim, neg_sim, gaps = _reduced_similarities(
-        image_embs, bank, prompt_mode, use_kernel=use_kernel
+        image_embs, bank, prompt_mode, use_kernel=use_kernel, mesh=mesh, rows=rows
     )
     logits = pos_sim - neg_sim if train_logit_diff else pos_sim
     scores = (pos_sim - neg_sim + 2.0) / 4.0 if pred_logit_diff else (pos_sim + 1.0) / 2.0

@@ -9,6 +9,11 @@ intermediate to device memory.  It holds at most 256 bank rows in shared
 memory, so a larger bank goes in chunks of 256 rows, one launch each, into
 the output's column slices (the JAX kernel takes any bank).
 
+:func:`pairwise_cosine_sharded` is the mesh variant (the JAX
+``pallas_pairwise_cosine_sharded``): each rank scores its shard of the
+rows against the replicated bank, through the same kernel on CUDA, and the
+shards are gathered back to the global (B, T) scores in row order.
+
 No-grad paths only: the kernel has no backward.  As ``jax.grad`` through
 the Pallas kernel fails, the wrapper raises, on every device, when grad
 mode is on and an operand requires grad, instead of returning a result
@@ -18,19 +23,20 @@ cut from the autograd graph.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from incremental_multimodal_medical_learning_ii_torch.ops.cosine import pairwise_cosine
 from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import current_stream, launcher
+from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import Mesh, gather_rows
 
 DIM = 128  # the joint embedding width the kernel is built for
 MAX_BANK_ROWS = 256  # shared memory holds the normalised bank (128 KB at 256 rows)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
-__all__ = ["fused_pairwise_cosine", "pairwise_cosine"]
+__all__ = ["fused_pairwise_cosine", "pairwise_cosine", "pairwise_cosine_sharded"]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -87,3 +93,21 @@ def fused_pairwise_cosine(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 fused_pairwise_cosine.launches = 0
+
+
+def pairwise_cosine_sharded(mesh: Mesh, x_local: torch.Tensor, t: torch.Tensor,
+                            rows: Optional[int] = None) -> torch.Tensor:
+    """K1 on this rank's rows of a ``rows``-row batch (default ``size``
+    shards of ``x_local``'s length; see ``parallel/mesh.py::batch_rows``)
+    against the replicated bank ``t``, gathered: the global (rows, T)
+    scores on every rank.  On CUDA tensors the kernel runs or this raises;
+    CPU tensors take the plain version.  ``calls`` counts the calls that
+    ran the kernel (its launches are K1's own count: one per 256 bank
+    rows)."""
+    local = fused_pairwise_cosine(x_local, t)
+    if x_local.is_cuda and local.numel():
+        pairwise_cosine_sharded.calls += 1
+    return gather_rows(mesh, local, x_local.shape[0] * mesh.size if rows is None else rows)
+
+
+pairwise_cosine_sharded.calls = 0

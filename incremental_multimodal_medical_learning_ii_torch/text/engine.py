@@ -43,7 +43,8 @@ class TextInferenceEngine:
         parity default is fp32).  ``model`` is moved to the device."""
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (the multi-device text encode) is not yet ported to the PyTorch package")
+                "mesh= (the tensor-, sequence- and pipeline-parallel text encode) is not yet "
+                "ported: ROADMAP slice 7b")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dims = model.dims

@@ -168,8 +168,11 @@ def test_refusals(weights, monkeypatch):
     imgs = _images(2, 6)
     with pytest.raises(ValueError, match="readback_interval"):
         tex.extract_embeddings(iter(imgs), model, device="cpu", readback_interval=0, **KW)
-    with pytest.raises(NotImplementedError, match="not yet ported.*item 8"):
-        tex.extract_embeddings(iter(imgs), model, device="cpu", mesh=object(), **KW)
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(rank=0, size=3, device=torch.device("cpu"), backend="gloo", group=None)
+    with pytest.raises(ValueError, match="not divisible by the mesh's 3 data shards"):
+        tex.extract_embeddings(iter(imgs), model, mesh=mesh, **KW)
     with pytest.raises(NotImplementedError, match="not yet ported.*item 9"):
         tex.extract_embeddings(iter(imgs), model, device="cpu", trace_dir="x", **KW)
     with pytest.raises(ValueError, match="requires a store"):

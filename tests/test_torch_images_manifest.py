@@ -217,3 +217,19 @@ def test_manifest_iteration_and_pool(image_manifest, monkeypatch):
     tail = list(manifest_image_iterator(image_manifest, start=3))
     assert len(tail) == 2
     np.testing.assert_array_equal(tail[0][0], items[3][0])
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_manifest_iteration_decodes_only_kept_positions(image_manifest, workers):
+    """Positions ``keep`` refuses are not decoded: zeros of the file's size
+    stand in for them, in order, serially and through the pool."""
+    items = list(manifest_image_iterator(image_manifest))
+    kept = list(manifest_image_iterator(image_manifest, workers=workers, start=1,
+                                        keep=lambda j: j % 2 == 1))
+    assert len(kept) == 4
+    for j, ((img, lbl), (want, want_lbl)) in enumerate(zip(kept, items[1:], strict=True)):
+        np.testing.assert_array_equal(lbl, want_lbl)
+        if j % 2 == 1:
+            np.testing.assert_array_equal(img, want)
+        else:
+            assert img.shape == want.shape and img.dtype == np.uint8 and not img.any()

@@ -30,6 +30,8 @@ EXTRACTION_MODULES = ("engine.extract", "ops.quant", "ops.preprocess", "data.ima
 # the image model surface and the native store
 GROUNDING_MODULES = ("vlp", "vlp.engine", "models.image_engine", "models.heads", "runtime",
                      "data.native", "cli.ground", "cli.dataset_stats")
+# the data-parallel slice: ranks over torch.distributed
+MESH_MODULES = ("parallel", "parallel.mesh")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -55,12 +57,12 @@ def test_import_all_submodules_loads_no_jax():
     assert n_modules >= 32
     port = "incremental_multimodal_medical_learning_ii_torch."
     assert all(port + m in loaded
-               for m in TRAINING_MODULES + EXTRACTION_MODULES + GROUNDING_MODULES)
+               for m in TRAINING_MODULES + EXTRACTION_MODULES + GROUNDING_MODULES + MESH_MODULES)
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
 
-@pytest.mark.parametrize("subpackage", ["vlp", "runtime"])
+@pytest.mark.parametrize("subpackage", ["vlp", "runtime", "parallel"])
 def test_new_subpackage_imports_alone_without_jax(subpackage):
     """Each subpackage imports on its own in a fresh interpreter, loading no
     JAX and nothing of the JAX package, and building nothing."""
@@ -178,21 +180,22 @@ def test_extraction_entry_points_refuse_without_cuda(monkeypatch, tmp_path, entr
 
 @pytest.mark.parametrize("driver", ["zero_joint_bounds", "data_incremental", "class_incremental"])
 def test_drivers_refuse_without_cuda_and_refuse_what_is_not_ported(monkeypatch, tmp_path, driver):
-    """The drivers ask for CUDA unless ``--device cpu``; figures,
-    ``--tsne-plots``, ``--trace-dir`` and more than one card raise "not yet
-    ported" (before any data is read)."""
+    """The drivers ask for CUDA unless ``--device cpu``, for their ranks too
+    (``--mesh-devices 2`` starts none on the CPU when CUDA is absent);
+    figures, ``--tsne-plots`` and ``--trace-dir`` raise "not yet ported"
+    (before any data is read)."""
     import importlib
 
     main = importlib.import_module(
         f"incremental_multimodal_medical_learning_ii_torch.cli.{driver}").main
     base = ["--synthetic", "--epochs", "1", "--log-dir", str(tmp_path)]
-    for flags in (["--plot-figures", "final"], ["--tsne-plots"], ["--trace-dir", str(tmp_path)],
-                  ["--mesh-devices", "2"]):
+    for flags in (["--plot-figures", "final"], ["--tsne-plots"], ["--trace-dir", str(tmp_path)]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             main([*base, *flags, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(base)
+    for flags in ([], ["--mesh-devices", "2"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([*base, *flags])
     from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
     from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import PromptBank
     from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig

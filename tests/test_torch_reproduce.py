@@ -80,8 +80,14 @@ def test_dry_run_matches_jax(tmp_path, injected, capsys):
     np.testing.assert_allclose(ours["class-inc"]["curve"], ref_curve, atol=AUROC_ATOL, rtol=0)
 
 
-def test_unported_flags_raise(tmp_path):
-    for flags in (["--plot-figures", "final"], ["--trace-dir", str(tmp_path)],
-                  ["--mesh-devices", "2"]):
+def test_unported_flags_raise(tmp_path, monkeypatch):
+    for flags in (["--plot-figures", "final"], ["--trace-dir", str(tmp_path)]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             t_repro.main(["--dry-run", "--device", "cpu", "--log-dir", str(tmp_path), *flags])
+    # --mesh-devices is ported: more ranks than cards raise as the JAX CLI does
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        t_repro.main(["--dry-run", "--mesh-devices", "2", "--log-dir", str(tmp_path)])

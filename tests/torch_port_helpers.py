@@ -2,12 +2,13 @@
 
 Inputs are made with numpy from a seed and handed to both packages; JAX
 parameter trees cross over as numpy leaves through the port's
-``params_from_jax``.
+``params_from_jax``.  JAX is imported where it is used, so that the ranks
+``parallel/mesh.py::spawn_ranks`` starts for the mesh tests (they import
+this module) load none of it.
 """
 
 from __future__ import annotations
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -26,6 +27,8 @@ def one_torch_thread():
 
 def to_numpy_tree(tree):
     """A JAX parameter tree with numpy leaves (structure unchanged)."""
+    import jax
+
     return jax.tree_util.tree_map(lambda a: np.asarray(a, dtype=np.float32), tree)
 
 
@@ -67,6 +70,8 @@ def _torch_default_conv_scale(tree):
 def biovil_numpy_params(seed: int = 0, bn_seed: int | None = 3):
     """The JAX package's BioViL init (PRNGKey(seed)) as a numpy tree, at
     torch's default conv scale, optionally with randomized BN statistics."""
+    import jax
+
     from incremental_multimodal_medical_learning_ii_tpu.models.biovil_image import (
         init_biovil_image_model,
     )
@@ -153,3 +158,249 @@ def reference_bert_state_dict(seed=0, projection=True, decoder_bias="cls.predict
         ln("cls_projection_head.LayerNorm", proj)
         linear("cls_projection_head.dense_to_output", proj, proj)
     return sd
+
+
+# ----------------------------------------------------------------------
+# Ranks of a data-parallel mesh: ``spawn_ranks`` pickles these functions by
+# name, so they live here, importable in a fresh process
+# ----------------------------------------------------------------------
+class Recorder:
+    """A writer that keeps (tag, value, step) in memory, for both packages."""
+
+    log_dir = None
+    enabled = True
+
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), int(step)))
+
+    def commit(self):
+        pass
+
+    def discard(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def mesh_orders(epoch, n):
+    """The epoch orders both packages' trainers draw in the mesh tests."""
+    return np.random.default_rng(1000 + epoch).permutation(n)
+
+
+def mesh_splits(n_train=97, n_eval=70, seed=5):
+    """Train / val / test (embeddings, labels) arrays of learnable synthetic
+    data: 97 rows are three batches of 32 and one row, so the last batch of
+    every epoch leaves the second rank nothing but padding."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(5, 128)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    out = []
+    for n in (n_train, n_eval, n_eval):
+        labels = (rng.random((n, 5)) < 0.35).astype(np.float32)
+        embs = labels @ dirs + rng.normal(size=(n, 128)).astype(np.float32) * 0.8
+        out.append((embs.astype(np.float32), labels))
+    return out
+
+
+def protocols_on_rank(cases, trees, splits):
+    """Every ``cases`` entry, ``{name: (runner, config kwargs, fold)}``,
+    through the port's protocol ``runner`` on this rank's mesh, from the
+    JAX init ``trees[name]`` with :func:`mesh_orders`; ``fold=False`` keeps
+    the incremental protocols off their whole-run fold.  Returns ``{name:
+    {"scalars", "params"}}``."""
+    torch.set_num_threads(1)
+    from incremental_multimodal_medical_learning_ii_torch.convert import params_from_jax
+    from incremental_multimodal_medical_learning_ii_torch.data.store import EmbeddingDataset
+    from incremental_multimodal_medical_learning_ii_torch.engine import protocols
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import create_mesh
+    from incremental_multimodal_medical_learning_ii_torch.text.bank import (
+        build_prompt_bank,
+        synthetic_encode_fn,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+        CHEXPERT_COMPETITION_TASKS,
+        ExperimentConfig,
+    )
+
+    mesh = create_mesh(2)
+    bundle = protocols.DataBundle(*(EmbeddingDataset(e, lbl) for e, lbl in splits))
+    bank = build_prompt_bank(synthetic_encode_fn(), create_prompts(CHEXPERT_COMPETITION_TASKS),
+                             CHEXPERT_COMPETITION_TASKS)
+    init, fusible = Trainer.__init__, Trainer.incremental_run_fusible
+    out = {}
+    for name, (runner, kw, fold) in cases.items():
+        rec = Recorder()
+
+        def trainer_init(self, *a, **k):
+            init(self, *a, **k)
+            self.permutation_source = mesh_orders
+
+        Trainer.__init__ = trainer_init
+        Trainer.incremental_run_fusible = fusible if fold else (lambda self, *a: False)
+        AdapterPair.init = lambda self, generator=None, tree=trees[name]: params_from_jax(tree)
+        protocols._make_writer = lambda cfg, log_dir, rec=rec: rec
+        res = getattr(protocols, runner)(ExperimentConfig(**kw), bundle, bank, log_dir=None,
+                                         mesh=mesh)
+        out[name] = {"scalars": rec.scalars,
+                     "params": {k: v.numpy() for k, v in res["trainer"].state.params.items()}}
+    return out
+
+
+def mesh_primitives_on_rank(x, t, ragged):
+    """``parallel/mesh.py``'s helpers and K1-mesh on this rank: an even and
+    a ragged batch sliced and gathered back, a sum, a broadcast, and the
+    sharded cosine of both batches against ``t``."""
+    torch.set_num_threads(1)
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        pairwise_cosine_sharded,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.parallel import mesh as m
+
+    mesh = m.create_mesh(2)
+    x, t, ragged = (torch.from_numpy(a) for a in (x, t, ragged))
+    x_local, r_local = m.batch_rows(mesh, x), m.batch_rows(mesh, ragged)
+    try:
+        m.gather_rows(mesh, x_local[1:], len(x))
+        wrong_shard = None
+    except ValueError as e:
+        wrong_shard = str(e)
+    return {
+        "rows": (len(x_local), len(r_local)),
+        "even": m.gather_rows(mesh, x_local.clone(), len(x)).numpy(),
+        "ragged": m.gather_rows(mesh, r_local.clone(), len(ragged)).numpy(),
+        "sum": m.all_reduce_sum(mesh, torch.full((3,), float(mesh.rank + 1))).numpy(),
+        "replicated": m.replicate(mesh, [torch.full((2,), float(mesh.rank))])[0].numpy(),
+        "cosine": pairwise_cosine_sharded(mesh, x_local, t).numpy(),
+        "cosine_ragged": pairwise_cosine_sharded(mesh, r_local, t, len(ragged)).numpy(),
+        "calls": pairwise_cosine_sharded.calls,
+        "wrong_shard": wrong_shard,
+    }
+
+
+def extract_manifest_on_rank(tree, csv_path, img_dir, kw, store_dir, cut):
+    """``extract_embeddings(mesh=)`` on this rank over a manifest's PNGs:
+    the stream decoding every image, the stream decoding the rank's slices
+    only (``rank_positions``), and a run of the latter cut after ``cut``
+    images then resumed.  Returns each run's embeddings and the files the
+    sliced and the resumed run decoded."""
+    torch.set_num_threads(1)
+    import itertools
+    from pathlib import Path
+
+    from incremental_multimodal_medical_learning_ii_torch.convert import params_from_jax
+    from incremental_multimodal_medical_learning_ii_torch.data.images import load_image_raw_uint8
+    from incremental_multimodal_medical_learning_ii_torch.data.manifest import ChexpertManifest
+    from incremental_multimodal_medical_learning_ii_torch.data.store import ShardedEmbeddingStore
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import (
+        extract_embeddings,
+        manifest_image_iterator,
+        rank_positions,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(2)
+    model = params_from_jax(tree)
+    manifest = ChexpertManifest.from_csv(csv_path, img_dir=img_dir)
+    decoded = []
+
+    def loader(path):
+        decoded.append(Path(path).name)
+        return load_image_raw_uint8(path)
+
+    def stream(skip=0, keep=rank_positions(mesh, kw["batch_size"])):
+        return manifest_image_iterator(manifest, loader=loader, start=skip, keep=keep)
+
+    def run(images, **extra):
+        return extract_embeddings(images, model, dtype=torch.float32, mesh=mesh, **kw,
+                                  **extra).embeddings
+
+    out = {"full": run(stream(keep=None))}
+    decoded.clear()
+    out["sliced"] = run(stream)
+    out["sliced_decoded"] = list(decoded)
+    store = ShardedEmbeddingStore(Path(store_dir) / "cut")  # rank 0's, read by both
+    run(itertools.islice(stream(), cut), store=store)
+    decoded.clear()
+    out["resumed"] = run(stream, store=store, resume=True)
+    out["resumed_decoded"] = list(decoded)
+    ragged = ShardedEmbeddingStore(Path(store_dir) / "ragged")
+    run(itertools.islice(stream(), cut + 1), store=ragged)
+    try:
+        run(stream(), store=ragged, resume=True)
+    except ValueError as e:
+        out["ragged_iterable_resume"] = str(e)
+    return out
+
+
+def fail_on_rank_one():
+    """A rank function whose rank 1 raises while rank 0 waits in a collective."""
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import barrier, create_mesh
+
+    mesh = create_mesh(2)
+    if mesh.rank == 1:
+        raise KeyError("rank one gives up")
+    barrier(mesh)
+
+
+def driver_on_rank(cli, argv, tree):
+    """A driver CLI's ``main(argv)`` on this rank, from the JAX init ``tree``
+    with :func:`mesh_orders`; returns (its printout, its final params)."""
+    import contextlib
+    import importlib
+    import io
+
+    torch.set_num_threads(1)
+    from incremental_multimodal_medical_learning_ii_torch.convert import params_from_jax
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair
+
+    init = Trainer.__init__
+    trainers = []
+
+    def trainer_init(self, *a, **k):
+        init(self, *a, **k)
+        self.permutation_source = mesh_orders
+        trainers.append(self)
+
+    Trainer.__init__ = trainer_init
+    AdapterPair.init = lambda self, generator=None: params_from_jax(tree)
+    printout = io.StringIO()
+    with contextlib.redirect_stdout(printout):
+        importlib.import_module(f"incremental_multimodal_medical_learning_ii_torch.cli.{cli}").main(argv)
+    return printout.getvalue(), {k: v.numpy() for k, v in trainers[-1].state.params.items()}
+
+
+def extract_on_rank(tree, imgs, kw, store_dir, cut):
+    """``extract_embeddings(mesh=)`` on this rank: the whole image list, a
+    clean run with shard checkpoints, and a run cut after ``cut`` images
+    then resumed.  Returns the embeddings of each and the stores' rows."""
+    torch.set_num_threads(1)
+    from pathlib import Path
+
+    from incremental_multimodal_medical_learning_ii_torch.convert import params_from_jax
+    from incremental_multimodal_medical_learning_ii_torch.data.store import ShardedEmbeddingStore
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import extract_embeddings
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(2)
+    model = params_from_jax(tree)
+
+    def run(images, store=None, **extra):
+        return extract_embeddings(iter(images), model, store=store, dtype=torch.float32,
+                                  mesh=mesh, **kw, **extra).embeddings
+
+    clean_store = ShardedEmbeddingStore(Path(store_dir) / "clean")
+    cut_store = ShardedEmbeddingStore(Path(store_dir) / "cut")
+    out = {"plain": run(imgs), "clean": run(imgs, clean_store)}
+    run(imgs[:cut], cut_store)
+    out["resumed"] = run(imgs, cut_store, resume=True)
+    for name, store in (("clean_rows", clean_store), ("cut_rows", cut_store)):
+        out[name] = store.glue().embeddings if store.total_rows() else None
+    return out
