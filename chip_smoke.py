@@ -94,7 +94,23 @@ and without the final result line:
    epoch at batch 6144 against the numpy batcher, and a joint run (bs 6144,
    eval bs 1024, 2 epochs, unshuffled, per-batch steps) over the store bit
    for bit the run over the in-memory dataset, K1 launched once an eval
-   batch, the C++ batcher serving.
+   batch, the C++ batcher serving;
+15. the data-parallel mesh (``parallel/mesh.py``): K1-mesh at two gloo
+   ranks sharing the card; one NCCL rank through the three drivers against
+   no mesh; the same at two gloo ranks; extraction with ``mesh=``; two NCCL
+   ranks where two cards are visible;
+16. sweeps and the text tower's partitions: (a) ``cli/sweep.py`` at phase
+   12's scale (4 lrs x 2 seeds, MEAN, Adam, 3 epochs) with ``--vmap``
+   (upload to readback under ``set_sync_debug_mode("error")``) and
+   sequentially, K1 once an eval batch of every point in both, each
+   point's mean AUROC vmapped vs sequential (2e-4), the vmapped sweep at a
+   small size the card against its CPU (1e-3); (b) TP (``model=2``), SP
+   (``seq=2``) and PP (``pipe=2``, 4 microbatches) at BERT-base width and
+   depth on two gloo ranks sharing the card against the one-rank dense
+   encode (fp32 5e-5, bf16 row cos > 0.999; TP also at the bank's shape),
+   the prompt bank through ``TextInferenceEngine(mesh=)`` (3e-5), gradients
+   at 2 layers (5e-5 of the largest), prompts/s beside one rank's; (c) the
+   same on two NCCL ranks where two cards are visible.
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -2786,6 +2802,324 @@ def mesh_phase(results) -> dict:
 
 
 # ----------------------------------------------------------------------
+# sweeps and the text tower's partitions (engine/sweep.py, parallel/{tp,sp,pp}.py)
+# ----------------------------------------------------------------------
+SWEEP_LRS = ["1e-4", "3e-4", "1e-3", "3e-3"]
+SWEEP_SEEDS = ["27", "99"]
+SWEEP_EPOCHS = 3  # the JAX CLI A/B's epochs (engine/sweep.py:70-71)
+SWEEP_ATOL = 2e-4  # a point's mean AUROC, vmapped vs sequential (JAX's CLI-scale bound, :70)
+SWEEP_SMALL_ROWS = (12_288, 2_048)  # the card against its own CPU: train, val rows
+PART_F32_ATOL = 5e-5  # a partition vs the one-rank dense encode, BERT-base (tests/test_tp.py:103)
+PART_BF16_COS = 0.999  # bf16, per row (tests/test_sp.py:164)
+GRAD_ATOL = 5e-5  # parameter gradients, scaled by the largest (tests/test_sp.py:199)
+# the gradient check's loss is sum(out * w) with a seeded w: the JAX tests'
+# sum(out * out[::-1]) is ill-conditioned at random weights (every row's
+# projection is nearly parallel, so fp32 rounding in the [CLS] states moves
+# the head's gradient by far more than the bar), and would measure fp32
+# noise, not the partition
+PP_MICROBATCHES = 4
+GRAD_BATCH = 8  # report rows in the gradient check (2 layers at full width)
+
+
+def sweep_phase(bank, results) -> dict:
+    """(16a) ``cli/sweep.py`` at phase 12's scale: 4 lrs x 2 seeds, MEAN,
+    Adam, the MLP double adapter, 3 epochs; once with ``--vmap`` (from the
+    first upload to the readback under ``set_sync_debug_mode("error")``)
+    and once sequentially; K1's launches in each; each point's mean AUROC
+    vmapped vs sequential; the vmapped sweep at a small size, the card
+    against its own CPU."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import sweep as cli
+    from incremental_multimodal_medical_learning_ii_torch.data.store import synthetic_dataset
+    from incremental_multimodal_medical_learning_ii_torch.engine import sweep
+    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
+        fused_pairwise_cosine,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
+
+    out: dict = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    guarded = {"calls": 0, "host_s": []}  # host seconds from the first upload to the readback
+    upload, readback = sweep.upload, sweep.readback
+
+    def guarded_upload(a, device):
+        if device.type == "cuda" and guarded.get("t0") is None:
+            guarded["calls"] += 1
+            guarded["t0"] = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+        return upload(a, device)
+
+    def unguarded_readback(tree):
+        if guarded.get("t0") is not None:
+            torch.cuda.set_sync_debug_mode("default")
+            guarded["host_s"].append(time.perf_counter() - guarded.pop("t0"))
+        return readback(tree)
+
+    try:
+        data_dir = training_data(tmp / "data")
+        flags = ["--data-dir", str(data_dir), "--batch-size", "6144", "--epochs",
+                 str(SWEEP_EPOCHS), "--lrs", *SWEEP_LRS, "--seeds", *SWEEP_SEEDS, "--optims",
+                 "adam", "--adapters", "mlp", "--prompt-modes", "mean", "--device", "cuda"]
+        runs: dict = {"vmap": [], "sequential": []}
+        sweep.upload, sweep.readback = guarded_upload, unguarded_readback
+        try:  # in turns: the first run of each mode pays its warm-ups
+            for mode in ("vmap", "sequential", "sequential", "vmap"):
+                fused_pairwise_cosine.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res = cli.main([*flags, *(["--vmap"] if mode == "vmap" else [])])
+                torch.cuda.synchronize()
+                runs[mode].append(dict(wall_s=time.perf_counter() - t0,
+                                       k1_launches=fused_pairwise_cosine.launches,
+                                       aurocs=[r[0] for r in res]))
+        finally:
+            sweep.upload, sweep.readback = upload, readback
+            torch.cuda.set_sync_debug_mode("default")
+        points = len(SWEEP_LRS) * len(SWEEP_SEEDS)
+        expected = points * math.ceil(VAL_ROWS / EVAL_BS)
+        vm, seq = runs["vmap"][0], runs["sequential"][0]
+        diffs = [abs(a - b) for a, b in zip(vm["aurocs"], seq["aurocs"])]
+        walls = {mode: [r["wall_s"] for r in rs] for mode, rs in runs.items()}
+        out.update(points=points, epochs=SWEEP_EPOCHS, k1_expected=expected, runs=runs,
+                   wall_s_in_turns=walls, vmap_vs_sequential_max_abs=max(diffs),
+                   speedup_second_runs=walls["sequential"][1] / walls["vmap"][1],
+                   guarded_calls=guarded["calls"], guarded_host_s=guarded["host_s"])
+        log(f"  (a) {points} points x {SWEEP_EPOCHS} epochs at {TRAIN_ROWS:,} rows, in turns "
+            f"(vmap, sequential, sequential, vmap): --vmap {walls['vmap']} s, sequential "
+            f"{walls['sequential']} s ({card_line()}); K1 launches "
+            f"{[r['k1_launches'] for r in runs['vmap'] + runs['sequential']]} (expected {expected} "
+            f"a run); mean AUROC vmapped vs sequential {max(diffs):.3g}; host s from upload to "
+            f"readback in the vmapped runs {guarded['host_s']}")
+        check(guarded["calls"] == 2, f"a vmapped sweep ran unguarded: {guarded}")
+        for mode, rs in runs.items():
+            for r in rs:
+                check(r["k1_launches"] == expected,
+                      f"sweep ({mode}): K1 launched {r['k1_launches']} times, the eval "
+                      f"batches imply {expected}")
+                check(len(r["aurocs"]) == points and all(np.isfinite(r["aurocs"])),
+                      f"sweep ({mode}): {r['aurocs']}")
+            check(rs[0]["aurocs"] == rs[1]["aurocs"], f"sweep ({mode}): two runs differ")
+        check(max(diffs) <= SWEEP_ATOL, f"vmapped sweep vs sequential: {max(diffs)} > {SWEEP_ATOL}")
+
+        # the vmapped sweep at a small size, the card against its own CPU
+        rng = np.random.default_rng(27)
+        dirs = rng.normal(size=(5, 128)).astype(np.float32)
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        train, val = (synthetic_dataset(n, seed=s, class_directions=dirs)
+                      for n, s in zip(SWEEP_SMALL_ROWS, (1, 2)))
+        cfgs = [ExperimentConfig(mode="joint", lr=float(lr), seed=int(seed), epochs=SWEEP_EPOCHS,
+                                 plot_figures="off") for seed in SWEEP_SEEDS for lr in SWEEP_LRS]
+        card = sweep.run_vmapped_sweep(cfgs, train, val, bank, device="cuda")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(min(threads, CPU_REFERENCE_THREADS))
+        try:
+            cpu = sweep.run_vmapped_sweep(cfgs, train, val, bank, device="cpu")
+        finally:
+            torch.set_num_threads(threads)
+        out["small_card_vs_cpu_max_abs"] = float(np.abs(card - cpu).max())
+        log(f"  (a) vmapped sweep at {SWEEP_SMALL_ROWS} rows, the card vs its CPU: per-class "
+            f"AUROC {out['small_card_vs_cpu_max_abs']:.3g}")
+        check(out["small_card_vs_cpu_max_abs"] <= CPU_AUROC_ATOL,
+              f"vmapped sweep, card vs CPU: {out['small_card_vs_cpu_max_abs']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["sweep"] = out
+    return out
+
+
+def row_cos_min(a, b) -> float:
+    import torch.nn.functional as F
+
+    return float(F.cosine_similarity(a.float(), b.float(), dim=-1).min())
+
+
+def scaled_grad_err(got: dict, ref: dict) -> float:
+    scale = max(float(v.abs().max()) for v in ref.values()) + 1e-12
+    return max(float((got[k] - ref[k]).abs().max()) for k in ref) / scale
+
+
+def partition_rank(refs: dict, vocab: str, reps: int) -> dict:
+    """One rank of phase 16b/c's group of two: TP (``model=2``), SP
+    (``seq=2``) and PP (``pipe=2``, 4 microbatches) at BERT-base width and
+    depth against the one-rank dense encodes ``refs`` (report length; TP
+    also at the bank's shape), fp32 and bf16; the prompt bank through
+    ``TextInferenceEngine(mesh=)``; gradients at 2 layers against the dense
+    path's on this rank; prompts/s in bf16 at report length."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import (
+        BertDims,
+        get_projected_text_embeddings,
+        init_cxr_bert,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.parallel import pp, sp, tp
+    from incremental_multimodal_medical_learning_ii_torch.text.bank import build_prompt_bank
+    from incremental_multimodal_medical_learning_ii_torch.text.engine import TextInferenceEngine
+    from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import PromptTokenizer
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+        CHEXPERT_COMPETITION_TASKS,
+    )
+
+    meshes = {"tp": tp.create_mesh_2d(1, 2), "sp": sp.create_mesh_sp(1, 2),
+              "pp": pp.create_mesh_pp(1, 2)}
+    mesh = meshes["tp"]
+    model = init_cxr_bert(torch.Generator().manual_seed(0), BertDims()).to(mesh.device)
+    dims = model.dims
+
+    def encoder(part, m, dtype, d=dims):
+        if part == "tp":
+            return tp.make_tp_text_encode(d, meshes[part], dtype=dtype)
+        if part == "sp":
+            return sp.make_sp_text_encode(d, meshes[part], dtype=dtype)
+        return pp.make_pp_text_encode(d, meshes[part], PP_MICROBATCHES, dtype=dtype)
+
+    shard = tp.shard_bert_tp(model, meshes["tp"])
+    held = {"tp": shard, "sp": model, "pp": model}
+    inputs = {name: (torch.from_numpy(i).to(mesh.device), torch.from_numpy(m).to(mesh.device))
+              for name, (i, m) in refs["inputs"].items()}
+    out = {"backend": mesh.backend, "transport": mesh.transport, "checks": {}, "times": {}}
+    with torch.no_grad():
+        for part in ("tp", "sp", "pp"):
+            shapes = ("report", "bank") if part == "tp" else ("report",)
+            for shape in shapes:
+                ids, mask = inputs[shape]
+                f32 = encoder(part, held[part], torch.float32)(held[part], ids, mask)
+                bf = encoder(part, held[part], torch.bfloat16)(held[part], ids, mask)
+                out["checks"][f"{part} {shape}"] = dict(
+                    fp32_max_abs=float((f32.cpu() - torch.from_numpy(refs[f"{shape} fp32"]))
+                                       .abs().max()),
+                    bf16_row_cos_min=row_cos_min(bf.cpu(), torch.from_numpy(refs[f"{shape} bf16"])),
+                    finite=bool(torch.isfinite(f32).all() and torch.isfinite(bf).all()))
+            ids, mask = inputs["report"]
+            encode = encoder(part, held[part], torch.bfloat16)
+            encode(held[part], ids, mask)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                encode(held[part], ids, mask)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / reps * 1e3
+            out["times"][part] = dict(ms=ms, prompts_per_s=ids.shape[0] / ms * 1e3)
+        # the prompt bank through the engine with mesh=
+        tokenizer = PromptTokenizer(vocab)
+        prompts = create_prompts(CHEXPERT_COMPETITION_TASKS)
+        for part in ("tp", "sp", "pp"):
+            engine = TextInferenceEngine(model, tokenizer, mesh=meshes[part], partition=part,
+                                         n_microbatches=PP_MICROBATCHES)
+            bank = build_prompt_bank(engine.encode_fn(), prompts, CHEXPERT_COMPETITION_TASKS)
+            out["checks"][f"{part} prompt bank"] = dict(bank_max_abs=max(
+                float((getattr(bank, f) - torch.from_numpy(refs[f"bank {f}"])).abs().max())
+                for f in ("pos", "neg")))
+    del model, shard, held
+    # gradients at 2 layers of full width
+    two = BertDims(num_layers=2)
+    ids, mask = (t[:GRAD_BATCH] for t in inputs["report"])
+    dense = init_cxr_bert(torch.Generator().manual_seed(1), two).to(mesh.device).requires_grad_(True)
+    w = torch.randn(GRAD_BATCH, two.projection_size, generator=torch.Generator().manual_seed(7))
+    w = w.to(mesh.device)
+    (get_projected_text_embeddings(dense, ids, mask, normalize=True) * w).sum().backward()
+    ref = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+           for k, p in dense.named_parameters()}
+    for part, mod in (("tp", tp), ("sp", sp), ("pp", pp)):
+        m = init_cxr_bert(torch.Generator().manual_seed(1), two).to(mesh.device)
+        m = tp.shard_bert_tp(m, meshes["tp"]) if part == "tp" else m
+        m.requires_grad_(True)
+        (encoder(part, m, torch.float32, two)(m, ids, mask) * w).sum().backward()
+        out["checks"][f"{part} grad"] = dict(
+            grad_scaled_max_abs=scaled_grad_err(mod.full_gradients(meshes[part], m), ref))
+    return out
+
+
+def partition_phase(bert, results) -> dict:
+    """Phase 16b: TP, SP and PP on two gloo ranks sharing the card, against
+    the one-rank dense encodes computed here; 16c: the same on two NCCL
+    ranks where two cards are visible."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import (
+        get_projected_text_embeddings,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import spawn_ranks
+    from incremental_multimodal_medical_learning_ii_torch.text.bank import build_prompt_bank
+    from incremental_multimodal_medical_learning_ii_torch.text.engine import TextInferenceEngine
+    from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import (
+        PromptTokenizer,
+        write_test_vocab,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+        CHEXPERT_COMPETITION_TASKS,
+    )
+
+    out: dict = {}
+    ids, mask = report_batch(bert.dims.vocab_size, seed=2)
+    g = np.random.default_rng(3)
+    lengths = g.integers(8, 33, size=256)
+    bank_mask = (np.arange(32)[None, :] < lengths[:, None]).astype(np.int32)
+    bank_ids = (g.integers(5, 30000, size=(256, 32)) * bank_mask).astype(np.int32)
+    bank_ids[:, 0] = 2
+    refs = {"inputs": {"report": (ids.cpu().numpy(), mask.cpu().numpy()),
+                       "bank": (bank_ids, bank_mask)}}
+    with torch.no_grad():
+        for shape, (i, m) in refs["inputs"].items():
+            i, m = torch.from_numpy(i).cuda(), torch.from_numpy(m).cuda()
+            for dtype in ("fp32", "bf16"):
+                refs[f"{shape} {dtype}"] = get_projected_text_embeddings(
+                    bert, i, m, normalize=True,
+                    dtype=torch.bfloat16 if dtype == "bf16" else torch.float32).cpu().numpy()
+        dense_ms = cuda_time_ms(lambda: get_projected_text_embeddings(bert, ids, mask,
+                                                                      dtype=torch.bfloat16), 5)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parts_") as tmp:
+        vocab = write_test_vocab(Path(tmp) / "vocab.txt")
+        engine = TextInferenceEngine(bert, PromptTokenizer(vocab))
+        bank = build_prompt_bank(engine.encode_fn(), create_prompts(CHEXPERT_COMPETITION_TASKS),
+                                 CHEXPERT_COMPETITION_TASKS)
+        refs.update({f"bank {f}": getattr(bank, f).numpy() for f in ("pos", "neg")})
+        out["one_rank_dense_bf16"] = dict(ms=dense_ms, prompts_per_s=ids.shape[0] / dense_ms * 1e3)
+        groups = [("gloo2", GLOO_ON_ONE_CARD, "gloo")]
+        if torch.cuda.device_count() >= 2:
+            groups.append(("nccl2", "cuda", "nccl"))
+        for name, devices, backend in groups:
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(partition_rank, 2, devices, refs, str(vocab), 2, backend=backend)
+            r = ranks[0]
+            out[name] = dict(wall_s=time.perf_counter() - t0, backend=r["backend"],
+                             transport=r["transport"], checks=r["checks"], times=r["times"])
+            tag = "(b)" if backend == "gloo" else "(c)"
+            log(f"  {tag} two {backend} ranks ({r['transport']}): {json.dumps(r['checks'])}")
+            log(f"  {tag} bf16 report encodes: "
+                + ", ".join(f"{p} {t['prompts_per_s']:.1f} prompts/s" for p, t in r["times"].items())
+                + f"; one rank dense {out['one_rank_dense_bf16']['prompts_per_s']:.1f} prompts/s "
+                f"({card_line()})")
+            for rank, rr in enumerate(ranks):
+                for key, c in rr["checks"].items():
+                    check(c.get("fp32_max_abs", 0.0) <= PART_F32_ATOL
+                          and c.get("bf16_row_cos_min", 1.0) > PART_BF16_COS
+                          and c.get("finite", True)
+                          and c.get("bank_max_abs", 0.0) <= BANK_ATOL
+                          and c.get("grad_scaled_max_abs", 0.0) <= GRAD_ATOL,
+                          f"{name} rank {rank}, {key}: {c}")
+        if "nccl2" not in out:
+            out["nccl2"] = (f"not run: {torch.cuda.device_count()} card visible; NCCL needs one "
+                            "card a rank (two gloo ranks share the card in (b))")
+            log(f"  (c) two ranks over NCCL: {out['nccl2']}")
+    results["partitions"] = out
+    return out
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2850,9 +3184,9 @@ def main(argv=None) -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s; --mesh-only prints no result line")
         return 0
 
-    model = init_biovil_image_model(torch.Generator().manual_seed(0))
     bank = build_prompt_bank(synthetic_encode_fn(27), create_prompts(CHEXPERT_COMPETITION_TASKS),
                              CHEXPERT_COMPETITION_TASKS)
+    model = init_biovil_image_model(torch.Generator().manual_seed(0))
 
     log("[3] kernels vs plain versions")
     folded, cases = kernel_checks(model, bank, results)
@@ -2895,6 +3229,10 @@ def main(argv=None) -> int:
         "through the three drivers against no mesh (loops under sync debug mode); the same at "
         "two gloo ranks; extraction with mesh=; two NCCL ranks where two cards are visible")
     mesh = mesh_phase(results)
+    log("[16] sweeps at phase 12's scale (--vmap under sync debug mode, then sequentially; the "
+        "card against its CPU) and the text tower's partitions at BERT-base on two ranks")
+    swept = sweep_phase(bank, results)
+    partition_phase(bert, results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]
@@ -2957,6 +3295,15 @@ def main(argv=None) -> int:
         ms=k1m["ms"], plain_ms=k1m["plain_ms"], bound_ms=k1m["bound_ms"], bound_by=k1m["bound_by"],
         library_ms=k1m["library_ms"], kernel_device_ms=k1m["kernel_device_ms"],
         whole_batch_ms=k1m["whole_batch_ms"], sharded_gloo_ms=mesh["k1_mesh_sharded_gloo_ms"]))
+    k1s = results["cosine_eval"][eval_names[0]]  # K1 scoring the sweep's eval batches (16a)
+    kernels.append(dict(
+        name=f"fused_cosine (sweep {eval_names[0]})", route="cuda",
+        source=f"{PACKAGE}/csrc/fused_cosine.cu",
+        replaces="incremental_multimodal_medical_learning_ii_tpu/ops/pallas_cosine.py:32",
+        launches=swept["runs"]["vmap"][0]["k1_launches"], max_abs_err=k1s["max_abs_err"],
+        ms=k1s["ms"],
+        plain_ms=k1s["plain_ms"], bound_ms=k1s["bound_ms"], bound_by=k1s["bound_by"],
+        library_ms=k1s["library_ms"], kernel_device_ms=k1s["kernel_device_ms"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

@@ -22,6 +22,12 @@ on the device and come back stacked in the JAX functions' shapes; nothing
 in them reads a value back to the host, so on CUDA the host queues the
 whole epoch, unit or run ahead of the card and the caller reads back once.
 
+:func:`build_vmapped_sweep` trains K sweep points of one program at once:
+``torch.func.vmap`` of the fused epoch's body over (K, ...)-stacked states,
+the gradient from ``torch.func.grad_and_value`` of the loss factored out as
+:func:`_loss` (the train step above keeps ``torch.autograd.grad`` and its
+bits); each point is then scored outside the vmap by the eval pass.
+
 Train steps score through ``ops/cosine.py`` (gradients flow there); eval
 passes run under ``torch.no_grad()`` and score through
 ``score_embeddings(use_kernel=True)``: on CUDA tensors that is the fused
@@ -186,6 +192,16 @@ def _forward(pair, params, embs, bank, cfg, use_kernel: bool = False):
     )
 
 
+def _loss(pair, cfg, params, embs, labels, elem_mask, class_mask, bank, mask_sum=None):
+    """One batch's masked BCE, a pure function of ``params``, and the
+    scorer's outputs."""
+    out = _forward(pair, params, embs, bank, cfg)
+    lbl = change_labels(labels) if cfg.change_labels else labels
+    loss = bce_with_logits(out.logits, lbl, elem_mask[:, None] * class_mask[None, :],
+                           mask_sum=mask_sum)
+    return loss, out
+
+
 def _sum_over_ranks(mesh, grads: Params, parts: List[torch.Tensor]):
     """The gradients and the other per-rank partial sums, summed over the
     ranks with one all_reduce of one flat buffer."""
@@ -225,10 +241,8 @@ def _train_core(pair: AdapterPair, cfg: ExperimentConfig, guard_empty: bool = Fa
             embs, labels, elem_mask = (batch_rows(mesh, t) for t in (embs, labels, elem_mask))
         leaves = [state.params[k].detach().requires_grad_(True) for k in names]
         with torch.enable_grad():
-            out = _forward(pair, dict(zip(names, leaves)), embs, bank, cfg)
-            lbl = change_labels(labels) if cfg.change_labels else labels
-            loss = bce_with_logits(out.logits, lbl, elem_mask[:, None] * class_mask[None, :],
-                                   mask_sum=mask_sum)
+            loss, out = _loss(pair, cfg, dict(zip(names, leaves)), embs, labels, elem_mask,
+                              class_mask, bank, mask_sum)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with torch.no_grad():
             grads = {k: torch.zeros_like(p) if g is None else g for k, p, g in zip(names, leaves, grads)}
@@ -436,6 +450,66 @@ def build_fused_run(pair: AdapterPair, cfg: ExperimentConfig, use_prof: bool = F
         return state, _stack(unit_stacked), _stack(unit_evals), _stack(unit_states)
 
     return run
+
+
+def _sweep_core(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+    """The train step as ``torch.func.vmap`` can run it: the gradient from
+    ``torch.func.grad_and_value`` of :func:`_loss` (``torch.autograd.grad``
+    does not vmap), then the update; no myCL, no metrics but the loss."""
+    grad_and_loss = torch.func.grad_and_value(lambda params, *batch: _loss(pair, cfg, params,
+                                                                           *batch)[0])
+
+    def core(state: TrainState, embs, labels, elem_mask, class_mask, bank, threshold):
+        grads, loss = grad_and_loss(state.params, embs, labels, elem_mask, class_mask, bank)
+        params, mu, nu, count = optimizer_update(cfg, state, grads)
+        return TrainState(params, mu, nu, count, state.lr, state.step + 1), {"loss": loss}
+
+    return core
+
+
+def build_vmapped_sweep(pair: AdapterPair, cfg: ExperimentConfig) -> Callable:
+    """K whole joint-training runs of one program (the points differ in
+    ``lr`` and seed only) and their val scoring: the sweep CLI's ``--vmap``
+    engine (``cli/sweep.py``, ``engine/sweep.py``).
+
+    ``sweep(states, embs, labels, valid, bank, perms, val_embs, val_labels,
+    val_valid) -> (states, (K, C) per-class val AUROC)``: ``states`` is a
+    :class:`TrainState` of (K, ...)-stacked tensors (each point's ``lr`` in
+    it), the train data padded to whole batches, ``perms`` the (K, E,
+    n_pad) per-point epoch orders ((K, E, 0) unshuffled).  The training is
+    one ``torch.func.vmap`` over the points of the fused epoch's body, so K
+    adapter problems run as batched products.  Scoring runs per point
+    outside the vmap through :func:`_fused_eval_pass` and ``auroc_device``,
+    what ``Trainer.quick_auroc`` runs: on CUDA the fused cosine kernel
+    scores every eval batch of every point (the JAX package scores with the
+    plain scorer here only because ``pallas_call`` does not vmap)."""
+    from incremental_multimodal_medical_learning_ii_torch.evaluation.metrics import auroc_device
+
+    if cfg.continual_learning is not None:
+        raise ValueError("--vmap sweeps train without CL resets "
+                         "(the joint sweep grid never sets them)")
+    core = _sweep_core(pair, cfg)
+
+    def one(state, embs, labels, valid, bank, perms):
+        class_mask = torch.ones(labels.shape[1], device=labels.device)
+        threshold = torch.zeros((), device=labels.device)
+        for e in range(perms.shape[0]):
+            state, _ = _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask,
+                                   threshold, perms[e])
+        return state
+
+    train = torch.func.vmap(one, in_dims=(0, None, None, None, None, 0))
+
+    def sweep(states, embs, labels, valid, bank, perms, val_embs, val_labels, val_valid):
+        states = train(states, embs, labels, valid, bank, perms)
+        aurocs = []
+        for k in range(perms.shape[0]):
+            _, scores, _ = _fused_eval_pass(pair, cfg, unstack(states.params, k), val_embs,
+                                            val_labels, val_valid, bank)
+            aurocs.append(auroc_device(scores, val_labels, val_valid))
+        return states, torch.stack(aurocs)
+
+    return sweep
 
 
 def epoch_permutation(seed: int, counter: int, n_real: int, n_pad: int) -> torch.Tensor:

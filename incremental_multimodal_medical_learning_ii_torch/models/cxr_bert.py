@@ -17,6 +17,12 @@ module-level functions run them with the JAX package's knobs:
 * ``fuse_qkv``: Q, K and V as one ``(H, 3H)`` product;
 * ``attention_core``: a ``(q, k, v, mask_bias) -> ctx`` hook that replaces
   the attention inner op (the sequence-parallel ring path plugs in here);
+* ``num_heads``, ``column_input`` and ``row_output``: the tensor-parallel
+  hooks (``parallel/tp.py``).  A rank's shard holds ``num_heads`` of the
+  heads (their width stays ``dims.head_dim``) and slices of the FFN;
+  ``column_input`` wraps the input of the column-parallel linears (q, k,
+  v, ``ffn_in``) and ``row_output`` the product of the row-parallel ones
+  (``attn_out``, ``ffn_out``), whose bias is added after it, once;
 * ``use_flash_attention``: the flash-attention kernel
   (``ops/flash_attention.py``) with key padding as segment ids, for report
   lengths; padded query rows then attend only padding, and their outputs
@@ -151,6 +157,14 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
 
 
+def _row_linear(layer: nn.Linear, x: torch.Tensor, row_output: Optional[Callable]) -> torch.Tensor:
+    """A row-parallel linear: the partial product through ``row_output``
+    (the all-reduce), then the bias once."""
+    if row_output is None:
+        return _linear(layer, x)
+    return row_output(F.linear(x, layer.weight.to(x.dtype))) + layer.bias.to(x.dtype)
+
+
 def _self_attention(
     layer: EncoderLayer,
     x: torch.Tensor,
@@ -159,18 +173,23 @@ def _self_attention(
     use_flash: bool = False,
     fuse_qkv: bool = False,
     attention_core: Optional[Callable] = None,
+    num_heads: Optional[int] = None,
+    row_output: Optional[Callable] = None,
 ) -> torch.Tensor:
-    b, s, h = x.shape
-    nh, hd = dims.num_heads, dims.head_dim
+    b, s, _ = x.shape
+    nh, hd = num_heads or dims.num_heads, dims.head_dim
+    width = nh * hd
 
     def split_heads(t):
         return t.reshape(b, s, nh, hd).transpose(1, 2)  # (B, nh, S, hd), a view
 
     if fuse_qkv:
+        # q, k and v each hold this rank's heads: the fused product is split
+        # at the heads' width, never in thirds of a full-width weight
         weight = torch.cat([layer.q.weight, layer.k.weight, layer.v.weight])
         bias = torch.cat([layer.q.bias, layer.k.bias, layer.v.bias])
         qkv = F.linear(x, weight.to(x.dtype), bias.to(x.dtype))
-        q, k, v = (split_heads(t) for t in qkv.split(h, dim=-1))
+        q, k, v = (split_heads(t) for t in qkv.split(width, dim=-1))
     else:
         q = split_heads(_linear(layer.q, x))
         k = split_heads(_linear(layer.k, x))
@@ -186,8 +205,8 @@ def _self_attention(
         scores = scores + mask_bias  # (B, 1, 1, S) fp32: bf16 scores promote
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         ctx = torch.matmul(probs, v)
-    ctx = ctx.transpose(1, 2).reshape(b, s, h)
-    return _linear(layer.attn_out, ctx)
+    ctx = ctx.transpose(1, 2).reshape(b, s, width)
+    return _row_linear(layer.attn_out, ctx, row_output)
 
 
 def embed_inputs(
@@ -223,12 +242,17 @@ def encoder_layer(
     use_flash: bool = False,
     fuse_qkv: bool = False,
     attention_core: Optional[Callable] = None,
+    num_heads: Optional[int] = None,
+    column_input: Optional[Callable] = None,
+    row_output: Optional[Callable] = None,
 ) -> torch.Tensor:
     """One post-LN BERT block: attention + residual LN + FFN + residual LN."""
-    attn = _self_attention(layer, x, mask_bias, dims, use_flash=use_flash,
-                           fuse_qkv=fuse_qkv, attention_core=attention_core)
+    col = column_input or (lambda t: t)
+    attn = _self_attention(layer, col(x), mask_bias, dims, use_flash=use_flash,
+                           fuse_qkv=fuse_qkv, attention_core=attention_core,
+                           num_heads=num_heads, row_output=row_output)
     x = _layer_norm(layer.attn_ln, x + attn)
-    ffn = _linear(layer.ffn_out, F.gelu(_linear(layer.ffn_in, x)))
+    ffn = _row_linear(layer.ffn_out, F.gelu(_linear(layer.ffn_in, col(x))), row_output)
     return _layer_norm(layer.ffn_ln, x + ffn)
 
 
@@ -242,6 +266,9 @@ def bert_encode(
     fuse_qkv: bool = False,
     attention_core: Optional[Callable] = None,
     position_offset: int = 0,
+    num_heads: Optional[int] = None,
+    column_input: Optional[Callable] = None,
+    row_output: Optional[Callable] = None,
 ) -> torch.Tensor:
     """(B, S) ids + mask -> (B, S, H) last hidden state in ``dtype``."""
     x = embed_inputs(model, input_ids, token_type_ids, dtype=dtype,
@@ -249,7 +276,8 @@ def bert_encode(
     mask_bias = attention_mask_bias(attention_mask)
     for layer in model.layers:
         x = encoder_layer(layer, x, mask_bias, model.dims, use_flash=use_flash_attention,
-                          fuse_qkv=fuse_qkv, attention_core=attention_core)
+                          fuse_qkv=fuse_qkv, attention_core=attention_core,
+                          num_heads=num_heads, column_input=column_input, row_output=row_output)
     return x
 
 
@@ -274,7 +302,13 @@ def get_projected_text_embeddings(
     run in fp32."""
     hidden = bert_encode(model, input_ids, attention_mask, dtype=dtype, fuse_qkv=fuse_qkv,
                          use_flash_attention=use_flash_attention)
-    proj = cls_projection(model, hidden[:, 0, :].float())
+    return project_cls(model, hidden[:, 0, :].float(), normalize)
+
+
+def project_cls(model: CXRBert, cls_hidden: torch.Tensor, normalize: bool) -> torch.Tensor:
+    """(B, H) fp32 [CLS] states -> the (B, projection_size) embeddings,
+    L2-normalised if asked."""
+    proj = cls_projection(model, cls_hidden)
     if normalize:
         proj = proj / torch.clamp(torch.linalg.norm(proj, dim=-1, keepdim=True), min=1e-12)
     return proj

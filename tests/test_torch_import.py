@@ -32,6 +32,10 @@ GROUNDING_MODULES = ("vlp", "vlp.engine", "models.image_engine", "models.heads",
                      "data.native", "cli.ground", "cli.dataset_stats")
 # the data-parallel slice: ranks over torch.distributed
 MESH_MODULES = ("parallel", "parallel.mesh")
+# the sweeps, and the text tower's tensor-, sequence- and pipeline-parallel
+# encodes with the dry run over ranks
+SWEEP_TEXT_PARALLEL_MODULES = ("engine.sweep", "cli.sweep", "ops.ring_attention", "parallel.tp",
+                               "parallel.sp", "parallel.pp", "multichip")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -57,7 +61,8 @@ def test_import_all_submodules_loads_no_jax():
     assert n_modules >= 32
     port = "incremental_multimodal_medical_learning_ii_torch."
     assert all(port + m in loaded
-               for m in TRAINING_MODULES + EXTRACTION_MODULES + GROUNDING_MODULES + MESH_MODULES)
+               for m in TRAINING_MODULES + EXTRACTION_MODULES + GROUNDING_MODULES + MESH_MODULES
+               + SWEEP_TEXT_PARALLEL_MODULES)
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -331,3 +336,43 @@ def test_launcher_signatures_match_the_bound_argtypes(module, symbol):
     assert m, f"{symbol} not in {cuda_build.SOURCES[module]}"
     wrapper = importlib.import_module(f"incremental_multimodal_medical_learning_ii_torch.ops.{module}")
     assert len(m.group(1).split(",")) == len(wrapper._ARGTYPES)
+
+
+@pytest.mark.parametrize("entry", ["cli.sweep", "run_vmapped_sweep", "create_mesh_2d",
+                                   "dryrun_multichip"])
+def test_sweep_and_partitions_refuse_without_cuda(monkeypatch, entry):
+    """The sweep, its CLI, the 2-D meshes and the dry run ask for CUDA
+    unless given the CPU; no rank is started."""
+    from incremental_multimodal_medical_learning_ii_torch.cli import sweep as cli
+    from incremental_multimodal_medical_learning_ii_torch.data.store import synthetic_dataset
+    from incremental_multimodal_medical_learning_ii_torch.engine.sweep import run_vmapped_sweep
+    from incremental_multimodal_medical_learning_ii_torch.multichip import dryrun_multichip
+    from incremental_multimodal_medical_learning_ii_torch.parallel.tp import create_mesh_2d
+    from incremental_multimodal_medical_learning_ii_torch.text.bank import (
+        build_prompt_bank,
+        synthetic_encode_fn,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+        CHEXPERT_COMPETITION_TASKS,
+        ExperimentConfig,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "cli.sweep":
+            cli.main(["--synthetic", "--epochs", "1", "--lrs", "1e-3", "--optims", "adam",
+                      "--adapters", "mlp", "--prompt-modes", "mean", "--vmap"])
+        elif entry == "run_vmapped_sweep":
+            bank = build_prompt_bank(synthetic_encode_fn(),
+                                     create_prompts(CHEXPERT_COMPETITION_TASKS),
+                                     CHEXPERT_COMPETITION_TASKS)
+            run_vmapped_sweep([ExperimentConfig(epochs=1, plot_figures="off")],
+                              synthetic_dataset(64, seed=1), synthetic_dataset(64, seed=2), bank)
+        elif entry == "create_mesh_2d":
+            create_mesh_2d(1, 1)
+        else:
+            dryrun_multichip(2)
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import current_mesh
+
+    assert current_mesh() is None

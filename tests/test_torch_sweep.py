@@ -1,0 +1,271 @@
+"""The port's sweeps (``engine/sweep.py``, ``engine/steps.py::
+build_vmapped_sweep``, ``cli/sweep.py``) against the JAX package's: the
+vmapped sweep with the JAX init and epoch orders injected, the port's
+vmapped sweep against its own sequential ``Trainer``, the errors, and the
+CLI against the JAX CLI at toy ``--synthetic`` flags, with its loud
+fallback."""
+
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from incremental_multimodal_medical_learning_ii_tpu.cli import common as j_common
+from incremental_multimodal_medical_learning_ii_tpu.cli import sweep as j_cli
+from incremental_multimodal_medical_learning_ii_tpu.data.store import (
+    synthetic_dataset as j_synthetic,
+)
+from incremental_multimodal_medical_learning_ii_tpu.engine import sweep as j_sweep
+from incremental_multimodal_medical_learning_ii_tpu.engine.steps import (
+    epoch_permutation as j_epoch_permutation,
+)
+from incremental_multimodal_medical_learning_ii_tpu.models.adapters import AdapterPair as JPair
+from incremental_multimodal_medical_learning_ii_tpu.text.bank import (
+    build_prompt_bank as j_build_bank,
+    synthetic_encode_fn as j_encode_fn,
+)
+from incremental_multimodal_medical_learning_ii_tpu.text.prompts import (
+    create_prompts as j_create_prompts,
+)
+from incremental_multimodal_medical_learning_ii_tpu.utils.config import (
+    ExperimentConfig as JConfig,
+)
+from incremental_multimodal_medical_learning_ii_torch.cli import sweep as t_cli
+from incremental_multimodal_medical_learning_ii_torch.convert import params_from_jax
+from incremental_multimodal_medical_learning_ii_torch.data.store import EmbeddingDataset
+from incremental_multimodal_medical_learning_ii_torch.engine import sweep as t_sweep
+from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer as TTrainer
+from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair as TPair
+from incremental_multimodal_medical_learning_ii_torch.text.bank import (
+    build_prompt_bank,
+    synthetic_encode_fn,
+)
+from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+    CHEXPERT_COMPETITION_TASKS,
+    ExperimentConfig,
+)
+
+from torch_port_helpers import assert_parity, one_torch_thread, to_numpy_tree  # noqa: F401
+
+METRIC_ATOL = 1e-4  # the drivers' metric bar
+SEQUENTIAL_ATOL = 1e-5  # vmapped vs sequential (tests/test_sweep_vmap.py:71)
+LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+SEEDS = (27, 99)
+
+
+def jax_order(seed: int, epoch_index: int, n: int) -> np.ndarray:
+    """The epoch order a JAX ``Trainer`` at ``seed`` draws for its
+    ``epoch_index``-th (0-based) shuffled epoch."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed + 1), epoch_index + 1)
+    return np.asarray(j_epoch_permutation(key, n, n))
+
+
+@pytest.fixture(scope="module")
+def data():
+    j_train, j_val = j_synthetic(300, seed=1), j_synthetic(150, seed=2)
+    t_train, t_val = (EmbeddingDataset(np.asarray(d.embeddings), np.asarray(d.labels))
+                      for d in (j_train, j_val))
+    j_bank = j_build_bank(j_encode_fn(), j_create_prompts(CHEXPERT_COMPETITION_TASKS),
+                          CHEXPERT_COMPETITION_TASKS, train_logit_diff=True)
+    t_bank = build_prompt_bank(synthetic_encode_fn(), create_prompts(CHEXPERT_COMPETITION_TASKS),
+                               CHEXPERT_COMPETITION_TASKS, train_logit_diff=True)
+    return (j_train, j_val, j_bank), (t_train, t_val, t_bank)
+
+
+@pytest.fixture
+def jax_init(monkeypatch):
+    """The port's adapters start from the JAX init at the point's seed (the
+    port seeds its generator with it)."""
+
+    def port_init(self, generator=None):
+        jpair = JPair(kind=self.kind, shared=self.shared, use_image=self.use_image,
+                      use_text=self.use_text)
+        key = jax.random.PRNGKey(generator.initial_seed())
+        return params_from_jax(to_numpy_tree(jpair.init(key)))
+
+    monkeypatch.setattr(TPair, "init", port_init)
+
+
+def _configs(optim):
+    return [dict(mode="joint", lr=lr, optim=optim, seed=seed, epochs=2, batch_size=64,
+                 eval_batch_size=64, plot_figures="off") for seed in SEEDS for lr in LRS]
+
+
+def _capture_states(monkeypatch, module, into: list):
+    """Keep the final stacked states of ``module``'s vmapped sweep."""
+    build = module.build_vmapped_sweep
+
+    def capturing(*a, **k):
+        sweep = build(*a, **k)
+
+        def run(*ops):
+            states, aurocs = sweep(*ops)
+            into.append(states)
+            return states, aurocs
+
+        return run
+
+    monkeypatch.setattr(module, "build_vmapped_sweep", capturing)
+
+
+def _val_scores(cfg, params, val, bank):
+    """One point's val scores from its trained ``params`` through the
+    port's eval pass (the plain scorer on the CPU)."""
+    from incremental_multimodal_medical_learning_ii_torch.engine.steps import _fused_eval_pass
+
+    pair = TPair(kind=cfg.adapter, shared=cfg.shared, use_image=cfg.image_adapter,
+                 use_text=cfg.text_adapter)
+    ops = [torch.from_numpy(a) for a in t_sweep._pad_whole_batches(val, cfg.eval_batch_size)]
+    return _fused_eval_pass(pair, cfg, params, *ops, bank)[1][:len(val)].numpy()
+
+
+def _flipped_pairs(a, b, labels):
+    """The (positive, negative) pairs ordered one way by scores ``a`` and
+    the other by ``b``, with their gap under ``a``."""
+    pos, neg = labels == 1, labels == 0
+    ga = a[pos][:, None] - a[neg][None, :]
+    gb = b[pos][:, None] - b[neg][None, :]
+    return ga[np.sign(ga) != np.sign(gb)]
+
+
+@pytest.mark.parametrize("optim", ["adam", "sgd"])
+def test_vmapped_sweep_matches_jax(data, jax_init, monkeypatch, optim):
+    """4 lrs x 2 seeds a group against the JAX package's vmapped sweep,
+    from the JAX init and orders: each point's val scores (from the two
+    packages' trained parameters, through one scorer) and per-class AUROCs
+    within the drivers' bar.  150 val rows make one (positive, negative)
+    pair worth ~2e-4 of AUROC, so a pair whose scores tie to fp32 noise may
+    order either way: an AUROC beyond the bar must come from such pairs
+    alone (a gap within twice the scores' largest difference)."""
+    (j_train, j_val, j_bank), (t_train, t_val, t_bank) = data
+    kws = _configs(optim)
+    j_states, t_states = [], []
+    _capture_states(monkeypatch, j_sweep, j_states)
+    _capture_states(monkeypatch, t_sweep, t_states)
+    ref = j_sweep.run_vmapped_sweep([JConfig(**kw) for kw in kws], j_train, j_val, j_bank)
+    cfgs = [ExperimentConfig(**kw) for kw in kws]
+    got = t_sweep.run_vmapped_sweep(
+        cfgs, t_train, t_val, t_bank, device="cpu",
+        permutation_source=lambda cfg, e, n: jax_order(cfg.seed, e, n))
+    assert got.shape == ref.shape == (len(kws), 5)
+    assert not np.allclose(got[0], got[len(LRS)], atol=1e-4)  # the seeds' runs differ
+    labels = np.asarray(t_val.labels)
+    print(f"PARITY sweep {optim}: max |port - jax| AUROC = {np.abs(got - ref).max():.3e}")
+    for k, cfg in enumerate(cfgs):
+        mine = {name: v[k] for name, v in t_states[0].params.items()}
+        theirs = {name: torch.from_numpy(v.numpy()) for name, v in params_from_jax(
+            to_numpy_tree(jax.tree_util.tree_map(lambda x: x[k], j_states[0].params))
+        ).state_dict().items()}
+        a, b = _val_scores(cfg, theirs, t_val, t_bank), _val_scores(cfg, mine, t_val, t_bank)
+        assert_parity(f"sweep {optim} lr={cfg.lr} seed={cfg.seed} val scores", b, a, METRIC_ATOL)
+        tie = 2 * float(np.abs(a - b).max())
+        for c in np.nonzero(np.abs(got[k] - ref[k]) > METRIC_ATOL)[0]:
+            flips = _flipped_pairs(a[:, c], b[:, c], labels[:, c])
+            print(f"PARITY sweep {optim} lr={cfg.lr} seed={cfg.seed} class {c}: AUROC "
+                  f"{abs(got[k, c] - ref[k, c]):.3e} apart from {len(flips)} flipped pair(s), "
+                  f"gaps {np.abs(flips).max():.3e} (tie bound {tie:.3e})")
+            assert len(flips) and np.abs(flips).max() <= tie, (cfg.lr, cfg.seed, c, flips)
+
+
+@pytest.mark.parametrize("optim", ["adam", "sgd"])
+def test_vmapped_sweep_matches_its_sequential_trainer(data, optim):
+    """Each point against a fresh sequential ``Trainer`` at its seed (its
+    own init and orders), trained epoch by epoch and scored by
+    ``quick_auroc``."""
+    _, (train, val, bank) = data
+    cfgs = [ExperimentConfig(**kw) for kw in _configs(optim)]
+    got = t_sweep.run_vmapped_sweep(cfgs, train, val, bank, device="cpu")
+    for cfg, vec in zip(cfgs, got):
+        trainer = TTrainer(cfg, bank, device="cpu")
+        for epoch in range(1, cfg.epochs + 1):
+            trainer.train(train, epoch)
+        assert_parity(f"sweep {optim} lr={cfg.lr} seed={cfg.seed} vmapped vs sequential", vec,
+                      trainer.quick_auroc(val), SEQUENTIAL_ATOL)
+
+
+def test_sweep_errors_match_jax(data):
+    """The point sets one program cannot serve raise the JAX messages."""
+    (j_train, j_val, j_bank), (t_train, t_val, t_bank) = data
+    base = dict(mode="joint", lr=1e-3, epochs=1, batch_size=64, eval_batch_size=64,
+                plot_figures="off")
+    cases = [
+        [base, dict(base, lr=1e-4, optim="sgd")],
+        [dict(base, lr_schedule="exponential")],
+        [dict(base, image_adapter=False, text_adapter=False)],
+    ]
+    for kws in cases:
+        with pytest.raises(ValueError) as jerr:
+            j_sweep.run_vmapped_sweep([JConfig(**kw) for kw in kws], j_train, j_val, j_bank)
+        with pytest.raises(ValueError) as terr:
+            t_sweep.run_vmapped_sweep([ExperimentConfig(**kw) for kw in kws], t_train, t_val,
+                                      t_bank, device="cpu")
+        assert str(terr.value) == str(jerr.value)
+    with pytest.raises(ValueError, match="without CL resets"):
+        t_sweep.run_vmapped_sweep([ExperimentConfig(**dict(base, continual_learning="myCL"))],
+                                  t_train, t_val, t_bank, device="cpu")
+
+
+_LINE = re.compile(r"^(lr=.*) val-AUROC-macro=([0-9.]+)$")
+
+
+def _printed(text: str):
+    rows = [_LINE.match(line) for line in text.splitlines()]
+    return [(m.group(1), float(m.group(2))) for m in rows if m]
+
+
+# (flags, whether the JAX CLI runs --vmap too).  The JAX package defines a
+# vmapped point's result as its sequential Trainer's (engine/sweep.py:64-70),
+# and its own --vmap drifts from that in MAX mode (0.8103 against 0.8118 at
+# lr 1e-2 here: its batched dots reassociate), so the port's --vmap is held
+# against the JAX CLI's sequential printout
+CLI_CASES = {
+    "vmap-seeds": (["--epochs", "2", "--lrs", "1e-3", "1e-2", "--optims", "adam",
+                    "--adapters", "mlp", "--prompt-modes", "mean", "max", "--seeds", "27", "99",
+                    "--vmap"], False),
+    "sequential": (["--epochs", "2", "--lrs", "1e-3", "--optims", "sgd", "--adapters", "dense",
+                    "--prompt-modes", "mean"], False),
+    "loud-fallback": (["--epochs", "0", "--lrs", "1e-3", "--optims", "adam", "--adapters", "mlp",
+                       "--prompt-modes", "mean", "--no-image-adapter", "--no-text-adapter",
+                       "--vmap"], True),
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_cli_matches_jax_cli(monkeypatch, capsys, jax_init, case):
+    """The printed AUROCs of every grid point, the ranking and the loud
+    fallback's warning, the port CLI against the JAX CLI, both from the
+    JAX init and orders."""
+    flags, jax_vmap = CLI_CASES[case]
+    common = ["--synthetic", "--batch-size", "2048", *flags]
+    monkeypatch.setattr(j_common, "enable_compile_cache", lambda: None)
+    j_cli.main(common if jax_vmap else [f for f in common if f != "--vmap"])
+    jax_out = capsys.readouterr().out
+
+    def trainer_init(self, *a, _orig=TTrainer.__init__, **k):
+        _orig(self, *a, **k)
+        self.permutation_source = lambda e, n, seed=self.cfg.seed: jax_order(seed, e, n)
+
+    monkeypatch.setattr(TTrainer, "__init__", trainer_init)
+    run = t_sweep.run_vmapped_sweep
+    monkeypatch.setattr(t_sweep, "run_vmapped_sweep", lambda *a, **k: run(
+        *a, permutation_source=lambda cfg, e, n: jax_order(cfg.seed, e, n), **k))
+    results = t_cli.main([*common, "--device", "cpu"])
+    port_out = capsys.readouterr().out
+    ref, got = _printed(jax_out), _printed(port_out)
+    assert [r[0] for r in got] == [r[0] for r in ref] and len(got) == len(results) > 0
+    # two values within 1e-5 of each other print at most one 4th-decimal step apart
+    print(f"PARITY sweep CLI {case}: max printed |port - jax| = "
+          f"{max(abs(a - b) for (_, a), (_, b) in zip(got, ref)):.1e}")
+    for (_, a), (_, b), res in zip(got, ref, results):
+        assert abs(a - b) <= METRIC_ATOL + 1e-9
+        assert abs(res[0] - b) <= METRIC_ATOL
+    assert "best: AUROC" in port_out
+    assert ("[warn] --vmap unavailable" in port_out) == jax_vmap
+
+
+def test_trace_dir_is_not_ported():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        t_cli.main(["--synthetic", "--trace-dir", "/nonexistent", "--device", "cpu"])

@@ -110,5 +110,8 @@ def test_bf16_engine_and_unported_mesh(engines):
     a = half.get_embeddings_from_prompt(PROMPTS)
     b = teng.get_embeddings_from_prompt(PROMPTS)
     assert a.dtype == np.float32 and np.sum(a * b, -1).min() > 0.995
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TextInferenceEngine(teng.model, PromptTokenizer(vocab), mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_text_parallel.py); a partition it
+    # does not know raises before anything is built, as in JAX
+    with pytest.raises(ValueError, match="unknown partition 'dp'"):
+        TextInferenceEngine(teng.model, PromptTokenizer(vocab), mesh=object(), partition="dp",
+                            device="cpu")

@@ -404,3 +404,131 @@ def extract_on_rank(tree, imgs, kw, store_dir, cut):
     for name, store in (("clean_rows", clean_store), ("cut_rows", cut_store)):
         out[name] = store.glue().embeddings if store.total_rows() else None
     return out
+
+
+def ring_on_rank(cases):
+    """``ops/ring_attention.py`` on this rank of a ``(1, n)`` seq mesh: for
+    each ``cases`` entry, ``{name: (q, k, v, valid, w)}`` of whole (B, nh, S,
+    hd) arrays, this rank's output chunk and the gradients of ``sum(out *
+    w)`` for its q, k and v chunks; and the 2-D view of the same ranks as
+    ``(2, n / 2)``: each line's members."""
+    torch.set_num_threads(1)
+    from incremental_multimodal_medical_learning_ii_torch.ops.ring_attention import ring_attention
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import create_mesh
+    from incremental_multimodal_medical_learning_ii_torch.parallel.sp import create_mesh_sp
+
+    world = create_mesh()
+    mesh = create_mesh_sp(1, world.size)
+    i, n = mesh.axis_index("seq"), world.size
+    out = {}
+    for name, (q, k, v, valid, w) in cases.items():
+        sl = q.shape[2] // n
+        cols = slice(i * sl, (i + 1) * sl)
+        q, k, v, w = (torch.from_numpy(np.ascontiguousarray(a[:, :, cols])).requires_grad_(True)
+                      for a in (q, k, v, w))
+        o = ring_attention(q, k, v, torch.from_numpy(valid[:, cols]), mesh, "seq",
+                           sm_scale=1.0 / float(np.sqrt(q.shape[-1])))
+        (o * w).sum().backward()
+        out[name] = {"out": o.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+                     "dv": v.grad.numpy()}
+    view = create_mesh((2, n // 2), axis_names=("data", "seq"))
+    out["view"] = {axis: (view.along(axis).ranks, view.axis_index(axis), view.along(axis).size)
+                   for axis in ("data", "seq")}
+    out["transport"] = mesh.transport
+    return out
+
+
+def ppermute_on_rank():
+    """``parallel/mesh.py::ppermute`` on this rank of a 1-D mesh: a float
+    tensor hopped by +1 and -1, cyclic and not, with the gradient of
+    ``sum(hopped * w)`` for each; an int32 tensor hopped; ``psum`` and
+    ``pvary`` with their gradients."""
+    torch.set_num_threads(1)
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
+        DATA_AXIS,
+        create_mesh,
+        ppermute,
+        psum,
+        pvary,
+    )
+
+    mesh = create_mesh()
+    r = mesh.rank
+    out = {}
+    for shift in (1, -1):
+        for wrap in (True, False):
+            x = torch.full((2, 3), float(r + 1)).requires_grad_(True)
+            w = torch.arange(6.0).reshape(2, 3) * (10 ** r)
+            (ppermute(mesh, DATA_AXIS, x, shift, wrap) * w).sum().backward()
+            out[(shift, wrap)] = {"y": ppermute(mesh, DATA_AXIS, x.detach(), shift, wrap).numpy(),
+                                  "grad": x.grad.numpy()}
+    out["int"] = ppermute(mesh, DATA_AXIS, torch.full((3,), r + 7, dtype=torch.int32)).numpy()
+    x = torch.full((2,), float(r + 1)).requires_grad_(True)
+    (psum(mesh, DATA_AXIS, x) * (r + 2)).sum().backward()
+    out["psum"] = (psum(mesh, DATA_AXIS, x.detach()).numpy(), x.grad.numpy())
+    x = torch.full((2,), 3.0).requires_grad_(True)
+    (pvary(mesh, DATA_AXIS, x) * (r + 2)).sum().backward()
+    out["pvary"] = x.grad.numpy()
+    return out
+
+
+def text_partitions_on_rank(cases, wide, engine_case):
+    """The text tower's partitions on this rank of four (each on its 2 x 2
+    mesh: ``create_mesh_2d``, ``create_mesh_sp``, ``create_mesh_pp``).
+
+    ``cases``: ``{name: (partition, dims kwargs, JAX tree, ids, mask, dtype
+    name, grad)}``: the encode's output and, with ``grad``, the whole
+    gradient of ``sum(out * out[::-1])`` (``full_gradients``).  ``wide``:
+    ``(dims kwargs, seed, ids, mask)``, TP at that width from the port's
+    own init.  ``engine_case``: ``(vocab path, {partition: (dims kwargs,
+    tree)}, prompts)``, the engine's embeddings with ``mesh=``."""
+    torch.set_num_threads(1)
+    from incremental_multimodal_medical_learning_ii_torch.convert import params_from_jax
+    from incremental_multimodal_medical_learning_ii_torch.models.cxr_bert import (
+        BertDims,
+        init_cxr_bert,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.parallel import pp, sp, tp
+    from incremental_multimodal_medical_learning_ii_torch.text.engine import TextInferenceEngine
+    from incremental_multimodal_medical_learning_ii_torch.text.tokenizer import PromptTokenizer
+
+    mods = {"tp": tp, "sp": sp, "pp": pp}
+    meshes = {"tp": tp.create_mesh_2d(2, 2), "sp": sp.create_mesh_sp(2, 2),
+              "pp": pp.create_mesh_pp(2, 2)}
+
+    def encoder(part, dims, model, dtype):
+        mesh = meshes[part]
+        if part == "tp":
+            return tp.make_tp_text_encode(dims, mesh, dtype=dtype), tp.shard_bert_tp(model, mesh)
+        if part == "sp":
+            return sp.make_sp_text_encode(dims, mesh, dtype=dtype), model
+        return pp.make_pp_text_encode(dims, mesh, 2, dtype=dtype), model
+
+    out = {}
+    for name, (part, dims_kw, tree, ids, mask, dtype, grad) in cases.items():
+        dims = BertDims(**dims_kw)
+        encode, model = encoder(part, dims, params_from_jax(tree, dims), getattr(torch, dtype))
+        ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+        if grad:
+            model.requires_grad_(True)
+            o = encode(model, ids, mask)
+            (o * o.flip(0)).sum().backward()
+            grads = mods[part].full_gradients(meshes[part], model)
+            out[name] = {"out": o.detach().numpy(), "grads": {k: v.numpy() for k, v in grads.items()}}
+        else:
+            with torch.no_grad():
+                out[name] = {"out": encode(model, ids, mask).numpy()}
+    dims_kw, seed, ids, mask = wide
+    dims = BertDims(**dims_kw)
+    encode, shard = encoder("tp", dims, init_cxr_bert(torch.Generator().manual_seed(seed), dims),
+                            torch.float32)
+    with torch.no_grad():
+        out["wide"] = {"out": encode(shard, torch.from_numpy(ids), torch.from_numpy(mask)).numpy(),
+                       "q_rows": tuple(shard.layers[0].q.weight.shape)}
+    vocab, trees, prompts = engine_case
+    for part, (dims_kw, tree) in trees.items():
+        dims = BertDims(**dims_kw)
+        engine = TextInferenceEngine(params_from_jax(tree, dims), PromptTokenizer(vocab),
+                                     mesh=meshes[part], partition=part, n_microbatches=2)
+        out[f"engine {part}"] = {"out": engine.get_embeddings_from_prompt(prompts)}
+    return out
