@@ -2,21 +2,22 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
-    python3 chip_smoke.py --profile  # also torch.profiler windows (phases 7, 11, 13, 14)
+    python3 chip_smoke.py --profile  # also torch.profiler windows (phases 7, 11, 13, 14, 17)
     python3 chip_smoke.py --mesh-only  # phases 1, 2 and 15 alone; no result line
 
 Phases, in order; any failure ends the script with a non-zero exit code
 and without the final result line:
 
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
-2. build every hand-written kernel of the serving path from ``csrc/``
-   (one ``nvcc`` per source, in parallel); the ``ptxas -v`` report of every
-   instantiation (no spills allowed in K3's bf16 kernel nor in K2);
+2. build every hand-written kernel from ``csrc/`` (one ``nvcc`` per
+   source, in parallel); the ``ptxas -v`` report of every instantiation (no
+   spills allowed in K3's bf16 kernel nor in K2);
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (fp32 with TF32 off); K2 at both
    serving crops, (3, 40, 24, 64) and ragged tiles ((3, 37, 21, 64), an
-   image smaller than a tile), each block alone and the chained layer; K1, K2 and K3 refuse an operand that requires grad under
-   grad mode (no backward kernel);
+   image smaller than a tile), each block alone and the chained layer; K1
+   and K2 refuse an operand that requires grad under grad mode (they have
+   no backward kernel), and K3 differentiates: its backward launches K3b;
 4. small-input check: the fp32 classifier on the card against the same
    classifier on the CPU (plain versions);
 5. the serving path at full width: ``ChexpertClassifier`` with seeded
@@ -110,7 +111,22 @@ and without the final result line:
    encode (fp32 5e-5, bf16 row cos > 0.999; TP also at the bank's shape),
    the prompt bank through ``TextInferenceEngine(mesh=)`` (3e-5), gradients
    at 2 layers (5e-5 of the largest), prompts/s beside one rank's; (c) the
-   same on two NCCL ranks where two cards are visible.
+   same on two NCCL ranks where two cards are visible;
+17. K3b, the flash-attention backward (``csrc/flash_attention_bwd.cu``):
+   (a) against its plain backward at phase 8's cases, fp32 (TF32 off, 1e-5
+   of each gradient's largest entry) and bf16 (cos > 0.999 a tensor), from
+   the forward's own o and log-sum-exp; the forward's o with the lse output
+   equals o without it bit for bit, its lse equals the plain forward's;
+   (b) the gradient of sum(w * get_projected_text_embeddings(
+   use_flash_attention=True)) at BERT-base, phase 9's batch, with respect
+   to every parameter and the input embeddings, against the dense path
+   (fp32 5e-5 of the largest gradient, bf16 cos > 0.999 a parameter), with
+   K3's and K3b's launches read around it (12 each); (c) times: K3b in
+   turns with SDPA's backward, the plain backward, the forward with and
+   without the lse, the profiler's device time; (d) the profiling tools:
+   ``zero_joint_bounds --trace-dir`` (its spans and K1's kernel in the
+   trace), ``extract_embeddings(trace_dir=)``, ``device_encode_rate`` at
+   bench.py's shape with and without K2.
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -336,22 +352,33 @@ def kernel_checks(model, bank, results):
     x[5] = 0.0
     t[22] = 0.0
     cos_err = {}
-    # no backward kernel: an operand that requires grad is refused under
-    # grad mode (on every device for K1, as jax.grad through the Pallas
-    # kernel fails), never scored into a result cut from autograd
-    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import flash_attention
+    # K1 has no backward kernel: an operand that requires grad is refused
+    # under grad mode (on every device, as jax.grad through the Pallas
+    # kernel fails), never scored into a result cut from autograd.  K3
+    # differentiates: its backward is K3b (phase 17 holds it to its plain
+    # version)
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
 
     xg = torch.randn(16, d, device=dev, generator=g).requires_grad_(True)
     check(raises(lambda: fused_pairwise_cosine(xg, mean_bank)), "K1 took an operand that requires grad")
     check(raises(lambda: fused_pairwise_cosine(mean_bank, xg)), "K1 took a bank that requires grad")
     qg = torch.randn(1, 2, 64, 64, device=dev, generator=g).requires_grad_(True)
     ones = torch.ones(1, 64, dtype=torch.int32, device=dev)
-    check(raises(lambda: flash_attention(qg, qg.detach(), qg.detach(), ones, ones)),
-          "K3 took a q that requires grad")
+    before = flash_attention_bwd.launches
+    out = flash_attention(qg, qg.detach(), qg.detach(), ones, ones)
+    check(out.grad_fn is not None, "K3's result carries no backward for a q that requires grad")
+    (dq,) = torch.autograd.grad(out.sum(), qg)
+    torch.cuda.synchronize()
+    check(flash_attention_bwd.launches == before + 1 and dq.shape == qg.shape
+          and bool(torch.isfinite(dq).all()), "K3's backward did not launch K3b")
     with torch.no_grad():
         check(fused_pairwise_cosine(xg, mean_bank).shape == (16, 10), "K1 under no_grad")
         check(flash_attention(qg, qg, qg, ones, ones).shape == qg.shape, "K3 under no_grad")
-    log("  K1 and K3 refuse an operand that requires grad under grad mode; both run under no_grad")
+    log("  K1 refuses an operand that requires grad under grad mode; K3 differentiates "
+        "(one K3b launch); both run under no_grad")
     for name, (x, t) in cases.items():
         got = fused_pairwise_cosine(x, t)
         ref = pairwise_cosine(x, t)
@@ -431,14 +458,15 @@ def layer_metrics(got, ref) -> dict:
 
 
 def profiled_device_ms(fn, wrapper, kernel: str, event_ms: float, bound_ms: float,
-                       iters: int = 50, tries: int = 3):
+                       iters: int = 50, tries: int = 3, per_launch: int = 1):
     """Device time of one call's kernels named ``kernel``, from the
     profiler's CUDA rows (CUDA events over back-to-back calls measure the
     host's launch rate when a kernel runs for microseconds).
 
     The time per call is the mean over the ``kernel`` rows the profiler
-    recorded, times the launches ``wrapper`` counted per call (the profiler
-    may drop a row of a window).  A reading is kept only if it can be true:
+    recorded, times the launches ``wrapper`` counted per call and the
+    ``per_launch`` kernels each launch runs (the profiler may drop a row of
+    a window).  A reading is kept only if it can be true:
     at least 90% of the launches have a row, and the time per call lies
     between the card's bound for the work and the same run's event time
     (10% over it allowed for the clock).  Otherwise it is taken again, up
@@ -458,9 +486,10 @@ def profiled_device_ms(fn, wrapper, kernel: str, event_ms: float, bound_ms: floa
         launched = wrapper.launches - before
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
         recorded = sum(e.count for e in rows)
-        ms = (sum(e.self_device_time_total for e in rows) / max(recorded, 1) * launched / iters
-              / 1e3)
-        if launched > 0 and recorded >= 0.9 * launched and bound_ms <= ms <= 1.1 * event_ms:
+        ms = (sum(e.self_device_time_total for e in rows) / max(recorded, 1) * launched
+              * per_launch / iters / 1e3)
+        if (launched > 0 and recorded >= 0.9 * launched * per_launch
+                and bound_ms <= ms <= 1.1 * event_ms):
             return ms
         log(f"    profiler reading of {kernel} rejected (try {attempt + 1}): {recorded} rows for "
             f"{launched} launches, {ms:.5f} ms a call against bound {bound_ms:.5f} and event "
@@ -861,6 +890,21 @@ def flash_inputs(shape, lengths, dtype, seed):
     return q, k, v, segment_ids(lengths, shape[2]), 1.0 / float(shape[3]) ** 0.5
 
 
+# phase 8's cases (and phase 17a's): report length, hd 128, S = 77 and 200
+# with padding, a one-token row, lengths on every edge of a 64-row block,
+# full rows, and queries whose segment no key shares
+def flash_cases():
+    return [
+        ("report (32,12,512,64)", REPORT, ragged_lengths(REPORT[0], REPORT[2], seed=1)),
+        ("hd128 (4,4,256,128)", (4, 4, 256, 128), [256, 200, 130, 17]),
+        ("S=77 (2,12,77,64)", (2, 12, 77, 64), [77, 40]),
+        ("S=200 (3,12,200,64), a one-token row", (3, 12, 200, 64), [200, 1, 123]),
+        ("block edges (6,12,512,64)", (6, 12, 512, 64), [1, 63, 64, 65, 300, 512]),
+        ("all rows full (4,12,512,64)", (4, 12, 512, 64), [512] * 4),
+        ("lonely queries (2,12,200,64)", (2, 12, 200, 64), [200, 150]),
+    ]
+
+
 def flash_checks(results):
     """Kernel 3 against its plain version (fp32 from the same inputs)."""
     import torch
@@ -870,13 +914,7 @@ def flash_checks(results):
         mha_reference,
     )
 
-    cases = [("report (32,12,512,64)", REPORT, ragged_lengths(REPORT[0], REPORT[2], seed=1)),
-             ("hd128 (4,4,256,128)", (4, 4, 256, 128), [256, 200, 130, 17]),
-             ("S=77 (2,12,77,64)", (2, 12, 77, 64), [77, 40]),
-             ("S=200 (3,12,200,64), a one-token row", (3, 12, 200, 64), [200, 1, 123]),
-             ("block edges (6,12,512,64)", (6, 12, 512, 64), [1, 63, 64, 65, 300, 512]),
-             ("all rows full (4,12,512,64)", (4, 12, 512, 64), [512] * 4),
-             ("lonely queries (2,12,200,64)", (2, 12, 200, 64), [200, 150])]
+    cases = flash_cases()
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, shape, lengths) in enumerate(cases):
@@ -1606,7 +1644,10 @@ SCORE_ATOL = 1e-4  # served scores, the card against the CPU, fp32
 
 
 def counters():
-    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import flash_attention
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
     from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
         fused_bottleneck_layer,
     )
@@ -1615,7 +1656,7 @@ def counters():
     )
 
     return {"fused_cosine": fused_pairwise_cosine, "fused_bottleneck": fused_bottleneck_layer,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd}
 
 
 def zero_counts() -> None:
@@ -3120,13 +3161,351 @@ def partition_phase(bert, results) -> dict:
 
 
 # ----------------------------------------------------------------------
+# K3b, the flash-attention backward, under the text tower's gradient; the
+# profiling tools (utils/profiling.py, chained_timing.py, device_bench.py)
+# ----------------------------------------------------------------------
+K3B_F32_REL = 1e-5  # of each gradient's largest entry, kernel vs plain backward, fp32 (TF32 off)
+K3B_BF16_COS = 0.999  # per gradient tensor in bf16 (p and ds rounded to bf16 on both sides)
+LSE_REL = 1e-5  # the kernel's log-sum-exp vs the plain forward's, per row, of max(|lse|, 1)
+TEXT_GRAD_F32_ATOL = 5e-5  # of the largest gradient, flash vs dense (tests/test_sp.py:199)
+TEXT_GRAD_BF16_COS = 0.999  # per parameter, flash vs dense in bf16
+BENCH_SHAPE = dict(batch=256, img_h=390, img_w=320, size=512, crop=512, channels=1)  # bench.py's
+
+
+def flash_bwd_bound_ms(q, seg):
+    """Bytes: q, k, v, o and do read once, the lse and the ids, dq, dk and
+    dv written once.  Operations: 10*hd for every (query, key) pair of one
+    segment, per head: the five products QK^T, dO V^T, P^T dO, dS^T Q and
+    dS K, 2.5x the forward's (a key of another segment adds nothing)."""
+    import torch
+
+    b, nh, s, hd = q.shape
+    bytes_ = 8 * b * nh * s * hd * q.element_size() + b * nh * s * 4 + 2 * seg.numel() * 4
+    pairs = int((seg[:, :, None] == seg[:, None, :]).sum())
+    flops = 10 * nh * hd * pairs
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    tb, tf = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations"), flops
+
+
+def grad_metrics(got, ref) -> dict:
+    """max |got - ref|, the same over the largest |ref|, and the cosine, in fp32."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    return dict(max_abs=err, rel=err / max(float(ref.abs().max()), 1e-30),
+                cos=float((got * ref).sum() / (got.norm() * ref.norm())))
+
+
+def k3b_checks(results) -> dict:
+    """(17a) K3b against its plain backward on the card, at phase 8's
+    cases, fp32 (TF32 off) and bf16, from the kernel forward's own o and
+    log-sum-exp; the forward's o with the lse output equals o without it
+    bit for bit, and its lse equals the plain forward's."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.ops import flash_attention as fa
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, shape, lengths) in enumerate(flash_cases()):
+            q, k, v, seg, scale = flash_inputs(shape, lengths, dtype, seed=40 + i)
+            do = torch.randn(*shape, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(60 + i)).to(dtype)
+            seg_kv = seg
+            if name.startswith("lonely"):  # kv ids no query shares: each averages every key
+                seg_kv = seg.clone()
+                seg_kv[1] = 7
+            with torch.no_grad():
+                plain_o = fa.flash_attention(q, k, v, seg, seg_kv, scale)
+            o, lse = fa._forward_kernel(q, k, v, seg, seg_kv, scale, None, with_lse=True)
+            _, ref_lse = fa.mha_reference_with_lse(q.float(), k.float(), v.float(), seg, seg_kv,
+                                                   scale)
+            before = fa.flash_attention_bwd.launches
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg_kv, scale)
+            ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg_kv, scale)
+            torch.cuda.synchronize()
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            m = {g: grad_metrics(a, b) for g, a, b in zip(("dq", "dk", "dv"), got, ref)}
+            lse_rel = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
+            out[key] = dict(o_bit_equal=torch.equal(o, plain_o), lse_rel=lse_rel, **m)
+            log(f"  (a) K3b {key}: " + ", ".join(f"{g} rel {v['rel']:.3e} cos {v['cos']:.8f}"
+                                                 for g, v in m.items())
+                + f"; lse {lse_rel:.3e}; o with lse == o without: {out[key]['o_bit_equal']}")
+            check(out[key]["o_bit_equal"], f"K3 {key}: the lse output changed o")
+            check(lse_rel <= LSE_REL, f"K3 {key}: lse off by {lse_rel}")
+            check(fa.flash_attention_bwd.launches == before + 1, f"K3b {key} did not launch")
+            check(all(bool(torch.isfinite(t).all()) for t in got), f"K3b {key} not finite")
+            for g, v in m.items():
+                if dtype == torch.float32:
+                    check(v["rel"] <= K3B_F32_REL, f"K3b {key} {g}: rel {v['rel']}")
+                else:
+                    check(v["cos"] > K3B_BF16_COS, f"K3b {key} {g}: cos {v['cos']}")
+    results["k3b_check"] = out
+    return out
+
+
+def text_tower_gradients(model, ids, mask, results, profile: bool = False) -> dict:
+    """(17b) The gradient of sum(w * get_projected_text_embeddings(
+    use_flash_attention=True)) at BERT-base, phase 9's batch, with respect
+    to every parameter and to the input embeddings (the embedding layer's
+    output), against the dense path: fp32 (TF32 off) and bf16; K3's and
+    K3b's launches read around one forward and backward (12 each)."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.models import cxr_bert
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+
+    w = torch.randn(ids.shape[0], model.dims.projection_size, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(17))
+    params = dict(model.named_parameters())
+    embed_inputs = cxr_bert.embed_inputs
+    captured = {}
+
+    def capture(*a, **kw):  # the input embeddings, kept for their gradient
+        x = embed_inputs(*a, **kw)
+        captured["x"] = x
+        return x
+
+    def grads(dtype, flash):
+        loss = (cxr_bert.get_projected_text_embeddings(model, ids, mask, dtype=dtype,
+                                                       use_flash_attention=flash) * w).sum()
+        names = [n for n, p in params.items() if p.requires_grad]
+        gs = torch.autograd.grad(loss, [params[n] for n in names] + [captured["x"]],
+                                 allow_unused=True)
+        out = {n: g for n, g in zip(names, gs[:-1]) if g is not None}
+        out["input embeddings"] = gs[-1]
+        return out
+
+    was = {n: p.requires_grad for n, p in params.items()}
+    model.requires_grad_(True)
+    for p in model.mlm_head.parameters():  # off the projection's path
+        p.requires_grad_(False)
+    cxr_bert.embed_inputs = capture
+    out = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for fn in (flash_attention, flash_attention_bwd):
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flash = grads(dtype, True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"flash_attention": flash_attention.launches,
+                        "flash_attention_bwd": flash_attention_bwd.launches}
+            dense = grads(dtype, False)
+            torch.cuda.synchronize()
+            check(sorted(flash) == sorted(dense), "flash and dense differ in what has a gradient")
+            check(all(bool(torch.isfinite(g).all()) for g in flash.values()), f"{dname}: not finite")
+            scale = max(float(g.abs().max()) for n, g in dense.items() if n != "input embeddings")
+            per = {n: grad_metrics(flash[n], dense[n]) for n in dense}
+            rel = max(float((flash[n] - dense[n]).abs().max()) / scale
+                      for n in dense if n != "input embeddings")
+            # the key projection's bias moves every logit of a row by the
+            # same q.b_k, which the softmax cancels: its gradient is zero in
+            # exact arithmetic, rounding noise on both paths, and has no
+            # direction to compare (it is held to the largest-gradient bar)
+            directed = [n for n in per if not n.endswith(".k.bias")]
+            worst = min(directed, key=lambda n: per[n]["cos"])
+            cos_min = per[worst]["cos"]
+            k_bias = max(float(flash[n].abs().max()) / scale for n in per if n not in directed)
+            out[dname] = dict(launches=launches, flash_grad_wall_s=wall, params=len(dense) - 1,
+                              max_rel_of_largest=rel,
+                              input_embeddings=per["input embeddings"], cos_min=cos_min,
+                              cos_min_param=worst, key_bias_max_of_largest=k_bias)
+            log(f"  (b) {dname}: {json.dumps(out[dname])}")
+            check(launches == {"flash_attention": model.dims.num_layers,
+                               "flash_attention_bwd": model.dims.num_layers},
+                  f"{dname}: launches {launches}, not {model.dims.num_layers} of each")
+            if dtype == torch.float32:
+                check(rel <= TEXT_GRAD_F32_ATOL, f"fp32 gradients, flash vs dense: {rel}")
+                check(per["input embeddings"]["rel"] <= TEXT_GRAD_F32_ATOL,
+                      f"fp32 input-embedding gradient: {per['input embeddings']}")
+            else:
+                check(cos_min > TEXT_GRAD_BF16_COS, f"bf16 gradients: cos {cos_min} ({worst})")
+            del flash, dense
+        # one gradient of the batch in bf16, flash against dense, in turns
+        out["grad_ms"] = alternating_ms(
+            {"flash": lambda: grads(torch.bfloat16, True),
+             "dense": lambda: grads(torch.bfloat16, False)}, rounds=3, iters=2)
+        log(f"  (b) bf16 gradient of the (32, 512) batch: {json.dumps(out['grad_ms'])} ms")
+        if profile:
+            for flash in (True, False):
+                profile_window(f"one bf16 gradient of the (32, 512) batch, "
+                               f"{'flash (K3 + K3b)' if flash else 'dense'} attention",
+                               lambda: grads(torch.bfloat16, flash), results)
+    finally:
+        cxr_bert.embed_inputs = embed_inputs
+        for n, p in params.items():
+            p.requires_grad_(was[n])
+        torch.cuda.empty_cache()
+    results["text_tower_gradients"] = out
+    return out
+
+
+def k3b_times(results) -> dict:
+    """(17c) K3b (CUDA events, medians of 5 rounds in turns with the
+    backward of SDPA through a graph built beforehand), the plain backward,
+    the forward with and without its lse output, and the profiler's device
+    time, at report length in bf16 and fp32 and at hd 128."""
+    import torch
+    import torch.nn.functional as F
+
+    from incremental_multimodal_medical_learning_ii_torch.ops import flash_attention as fa
+
+    times = {}
+    report_lengths = ragged_lengths(REPORT[0], REPORT[2], seed=1)
+    for name, shape, lengths, dtype in (
+            ("bfloat16", REPORT, report_lengths, torch.bfloat16),
+            ("float32", REPORT, report_lengths, torch.float32),
+            ("bfloat16 hd128", (4, 4, 256, 128), [256, 200, 130, 17], torch.bfloat16)):
+        q, k, v, seg, scale = flash_inputs(shape, lengths, dtype, seed=10)
+        do = torch.randn(*shape, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(11)).to(dtype)
+        o, lse = fa._forward_kernel(q, k, v, seg, seg, scale, None, with_lse=True)
+        bound, by, flops = flash_bwd_bound_ms(q, seg)
+        allowed = (seg[:, :, None] == seg[:, None, :])[:, None]  # (B, 1, S, S)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed, scale=scale)
+        lib = torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg, scale)
+        lib_rel = max(grad_metrics(a, b)["rel"] for a, b in zip(lib, ref))
+        del lib
+        med = alternating_ms(
+            {"ms": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale),
+             "library_ms": lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)},
+            iters=10)
+        fwd = alternating_ms(
+            {"forward_ms": lambda: fa._forward_kernel(q, k, v, seg, seg, scale, None, False),
+             "forward_lse_ms": lambda: fa._forward_kernel(q, k, v, seg, seg, scale, None, True)},
+            iters=50)
+        times[name] = dict(
+            **med, **fwd,
+            plain_ms=cuda_time_ms(
+                lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg, scale), 3,
+                warmup=1),
+            bound_ms=bound, bound_by=by, flops_needed=flops, tflops_needed=flops / med["ms"] / 1e9,
+            shape=list(shape), library_max_rel_vs_plain=lib_rel,
+            kernel_device_ms=profiled_device_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale),
+                fa.flash_attention_bwd, "flash_bwd_", med["ms"], bound, iters=10, per_launch=3))
+        log(f"  (c) K3b {name} {shape}: {json.dumps(times[name])}")
+        del lib_out, leaves, ref
+        torch.cuda.empty_cache()
+    results["k3b_times"] = times
+    return times
+
+
+def trace_contents(trace_dir: Path) -> dict:
+    """The files, the named spans and the kernels (name: count) of the
+    profiler traces in ``trace_dir``."""
+    import collections
+
+    spans, kernels = collections.Counter(), collections.Counter()
+    files = sorted(Path(trace_dir).rglob("*.pt.trace.json"))
+    check(bool(files), f"no trace written into {trace_dir}")
+    for f in files:
+        for e in json.loads(f.read_text())["traceEvents"]:
+            if e.get("cat") == "user_annotation":
+                spans[e["name"]] += 1
+            elif e.get("cat") == "kernel":
+                kernels[e["name"]] += 1
+    return {"files": len(files), "spans": dict(spans), "kernels": dict(kernels)}
+
+
+def tools_phase(model, results) -> dict:
+    """(17d) The profiling tools on the card: ``cli/zero_joint_bounds.py
+    --synthetic --epochs 2 --trace-dir`` (the spans and K1's kernel in the
+    trace; the run's wall time beside the same run untraced),
+    ``extract_embeddings(trace_dir=)`` (the extraction spans), and
+    ``device_encode_rate`` at bench.py's shape with and without K2, beside
+    phase 13e's rate."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import zero_joint_bounds
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import (
+        extract_embeddings,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        fold_grayscale_conv1,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.utils.device_bench import (
+        device_encode_rate,
+    )
+
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        walls = {}
+        for traced in (False, True):
+            flags = ["--synthetic", "--epochs", "2", "--mesh-devices", "1",
+                     "--log-dir", str(tmp / f"runs-{traced}")]
+            if traced:
+                flags += ["--trace-dir", str(tmp / "trace")]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                zero_joint_bounds.main(flags)
+            walls["traced" if traced else "untraced"] = time.perf_counter() - t0
+        trace = trace_contents(tmp / "trace")
+        k1 = sum(n for name, n in trace["kernels"].items() if "fused_cosine_kernel" in name)
+        out["training_run"] = dict(wall_s=walls, files=trace["files"], spans=trace["spans"],
+                             k1_kernel_rows=k1, kernel_rows=sum(trace["kernels"].values()))
+        log(f"  (d) zero_joint_bounds --trace-dir: {json.dumps(out['training_run'])}")
+        check(trace["spans"].get("fused-train-epoch", 0) + trace["spans"].get("fused-joint-run", 0)
+              >= 1, f"no fused training span in the trace: {trace['spans']}")
+        check(trace["spans"].get("eval-pass", 0) >= 4, f"eval spans: {trace['spans']}")
+        check(k1 > 0, "K1's kernel is not in the trace")
+
+        rng = np.random.default_rng(5)
+        imgs = [(rng.integers(0, 256, (390, 320), dtype=np.uint8), np.zeros(5, np.float32))
+                for _ in range(16)]
+        ds = extract_embeddings(iter(imgs), model, batch_size=8, size=EXTRACT_SIZE,
+                                readback_interval=1, trace_dir=str(tmp / "extract-trace"))
+        trace = trace_contents(tmp / "extract-trace")
+        out["extraction"] = dict(rows=len(ds), spans=trace["spans"],
+                                 kernel_rows=sum(trace["kernels"].values()))
+        log(f"  (d) extract_embeddings(trace_dir=): {json.dumps(out['extraction'])}")
+        check(len(ds) == 16 and trace["spans"].get("extract_dispatch") == 2
+              and trace["spans"].get("extract_readback", 0) >= 1
+              and out["extraction"]["kernel_rows"] > 0, f"extraction trace {out['extraction']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    fm = fold_grayscale_conv1(model)
+    rates = {}
+    for fused in (False, True):
+        rates["K2" if fused else "cuDNN"] = device_encode_rate(
+            fm, **BENCH_SHAPE, fused_layer1=fused, k_short=2, k_long=8)
+    del fm
+    torch.cuda.empty_cache()
+    out["device_encode_rate"] = dict(
+        images_per_s=rates, **BENCH_SHAPE,
+        phase_13e_images_per_s=results["device_encode"]["images_per_s"])
+    log(f"  (d) device_encode_rate (chained, long minus short): "
+        f"{json.dumps(out['device_encode_rate'])}")
+    check(all(r is not None and r > 0 for r in rates.values()), f"device_encode_rate {rates}")
+    results["tools"] = out
+    return out
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler windows over one served batch, one "
                          "report-length text encode (flash and dense), one extraction "
-                         "encode (K2 and cuDNN layer1) and one grounding query")
+                         "encode (K2 and cuDNN layer1), one grounding query and one "
+                         "text-tower gradient (flash and dense)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="phases 1, 2 and 15 alone (the mesh), printing no result line")
     args = ap.parse_args(argv)
@@ -3177,6 +3556,7 @@ def main(argv=None) -> int:
                   f"{entry} spills: {rep}")
     check(sum("flash_fwd_bf16_kernel" in e for e in ptxas) == 2, "no ptxas report for K3 bf16")
     check(sum(K2_KERNEL in e for e in ptxas) == 2, "no ptxas report for K2's two instantiations")
+    check(sum("flash_bwd_" in e for e in ptxas) == 10, "no ptxas report for K3b's ten kernels")
 
     if args.mesh_only:
         log("[15] the data-parallel mesh alone")
@@ -3233,6 +3613,12 @@ def main(argv=None) -> int:
         "card against its CPU) and the text tower's partitions at BERT-base on two ranks")
     swept = sweep_phase(bank, results)
     partition_phase(bert, results)
+    log("[17] K3b, the flash-attention backward: against its plain version, the text tower's "
+        "gradient at BERT-base through it against the dense path, times; the profiling tools")
+    k3b_checks(results)
+    grads = text_tower_gradients(bert, ids, mask, results, args.profile)
+    k3b = k3b_times(results)["bfloat16"]
+    tools_phase(model, results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]
@@ -3304,6 +3690,18 @@ def main(argv=None) -> int:
         ms=k1s["ms"],
         plain_ms=k1s["plain_ms"], bound_ms=k1s["bound_ms"], bound_by=k1s["bound_by"],
         library_ms=k1s["library_ms"], kernel_device_ms=k1s["kernel_device_ms"]))
+    kernels.append(dict(  # K3b under the text tower's bf16 gradient (17b), timed at (32,12,512,64)
+        name="flash_attention_bwd", route="cuda", source=f"{PACKAGE}/csrc/flash_attention_bwd.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1121,1456 (jax 0.9.0; "
+                 "the custom VJP of the call at "
+                 "incremental_multimodal_medical_learning_ii_tpu/models/cxr_bert.py:197)",
+        launches=grads["bfloat16"]["launches"]["flash_attention_bwd"],
+        max_abs_err=max(results["k3b_check"]["report (32,12,512,64) bfloat16"][g]["max_abs"]
+                        for g in ("dq", "dk", "dv")),
+        ms=k3b["ms"], plain_ms=k3b["plain_ms"], bound_ms=k3b["bound_ms"],
+        bound_by=k3b["bound_by"], library_ms=k3b["library_ms"],
+        kernel_device_ms=k3b["kernel_device_ms"], tflops_needed=k3b["tflops_needed"],
+        forward_lse_ms=k3b["forward_lse_ms"], forward_ms=k3b["forward_ms"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

@@ -7,10 +7,11 @@ The drivers run on CUDA unless ``--device cpu`` is given.
 ``--mesh-devices`` has the JAX CLI's meaning (:func:`mesh_size`): more
 than one runs the driver data-parallel on that many ranks, one process
 each (:func:`run_ranks`; NCCL on the card, one card a rank; gloo on the
-CPU), and only rank 0 prints and writes.  What is not ported yet raises
-"not yet ported" (:func:`check_unported`): figures and ``--tsne-plots``
-(matplotlib is absent on the card's machine) and ``--trace-dir``
-(``utils/profiling.py``); the JAX package's compile cache has no
+CPU), and only rank 0 prints and writes.  ``--trace-dir`` writes a
+``torch.profiler`` trace of the training and eval loop
+(``utils/profiling.py``).  What is not ported yet raises "not yet ported"
+(:func:`check_unported`): figures and ``--tsne-plots`` (matplotlib is
+absent on the card's machine); the JAX package's compile cache has no
 counterpart.
 """
 
@@ -169,23 +170,21 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
         help="TB figure cadence; only 'off' is ported: figures need matplotlib, which the "
         "card's machine lacks, so the default is 'off' (the JAX CLI's is 'reference')",
     )
-    p.add_argument("--trace-dir", help="profiler trace: not yet ported (utils/profiling.py)")
+    p.add_argument("--trace-dir",
+                   help="write a torch.profiler trace of the training/eval loop (host ops, and "
+                   "the card's kernels on CUDA) into this directory; Perfetto and TensorBoard's "
+                   "PyTorch profiler plugin open it")
 
 
 def check_unported(args) -> None:
     """Raise for a flag whose feature is not ported yet (the CLIs call this
     before anything else)."""
-    from incremental_multimodal_medical_learning_ii_torch.engine.protocols import (
-        TRACE_NOT_PORTED,
-    )
     from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import (
         FIGURES_NOT_PORTED,
     )
 
     if args.plot_figures != "off" or args.tsne_plots:
         raise NotImplementedError(FIGURES_NOT_PORTED)
-    if args.trace_dir:
-        raise NotImplementedError(TRACE_NOT_PORTED)
 
 
 def mesh_size(args) -> int:

@@ -51,7 +51,7 @@ def main(argv=None) -> dict:
     bundle = common.load_bundle(args)
     bank = common.build_bank(args, device)
     results = run_data_incremental(cfg, bundle, bank, log_dir=args.log_dir, device=device,
-                                   resume=args.resume, mesh=mesh)
+                                   resume=args.resume, trace_dir=args.trace_dir, mesh=mesh)
     common.print_results(results)
     return results
 

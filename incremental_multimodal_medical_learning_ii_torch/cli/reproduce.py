@@ -162,7 +162,7 @@ def main(argv=None) -> dict:
             eval_batch_size=1024, seed=args.seed,
         )
         res = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device,
-                             mesh=mesh)
+                             trace_dir=args.trace_dir, mesh=mesh)
         check("zero-shot", res["test_zero"]["auroc_macro"], TARGETS["zero-shot"][1])
 
     if "joint" in args.gates:
@@ -175,7 +175,7 @@ def main(argv=None) -> dict:
             fused_unit=args.fused_unit, plot_figures="off",
         )
         res = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device,
-                             mesh=mesh)
+                             trace_dir=args.trace_dir, mesh=mesh)
         best = max(res[f"test_ep{e}"]["auroc_macro"] for e in range(1, cfg.epochs + 1))
         check("joint", best, TARGETS["joint"][1])
 
@@ -191,7 +191,7 @@ def main(argv=None) -> dict:
             fused_unit=args.fused_unit,
         )
         res = run_class_incremental(cfg, bundle, bank, log_dir=args.log_dir, device=device,
-                                    mesh=mesh)
+                                    trace_dir=args.trace_dir, mesh=mesh)
         curve = [res[f"test_task{t}"]["auroc_macro"] for t in range(1, 6)]
         print("class-inc curve:", " ".join(f"{v:.4f}" for v in curve),
               "(reference", " ".join(f"{v:.4f}" for v in CLASS_INC_CURVE) + ")")

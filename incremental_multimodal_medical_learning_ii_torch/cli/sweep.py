@@ -50,6 +50,7 @@ def main(argv=None) -> list:
     from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
     from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
     from incremental_multimodal_medical_learning_ii_torch.utils.device import resolve_device
+    from incremental_multimodal_medical_learning_ii_torch.utils.profiling import maybe_trace
 
     device = resolve_device(args.device)
     bundle = common.load_bundle(args)
@@ -93,25 +94,26 @@ def main(argv=None) -> list:
                 trainer.train(bundle.train, epoch)
             report(trainer.quick_auroc(bundle.val).mean(), cfg.lr, optim, adapter, pm, cfg.seed)
 
-    for optim, adapter, pm in itertools.product(args.optims, args.adapters, args.prompt_modes):
-        if not args.vmap:
-            sequential(optim, adapter, pm)
-            continue
-        from incremental_multimodal_medical_learning_ii_torch.engine import sweep
+    with maybe_trace(args.trace_dir, device):  # one trace spanning the whole grid
+        for optim, adapter, pm in itertools.product(args.optims, args.adapters, args.prompt_modes):
+            if not args.vmap:
+                sequential(optim, adapter, pm)
+                continue
+            from incremental_multimodal_medical_learning_ii_torch.engine import sweep
 
-        cfgs = grid_cfgs(optim, adapter, pm)
-        try:
-            aurocs = sweep.run_vmapped_sweep(cfgs, bundle.train, bundle.val, bank_of(cfgs[0]),
-                                             device=device)
-        except ValueError as e:
-            # a knob one program cannot serve (an lr schedule, no trainable
-            # adapter): fall back loudly, so K x E runs are never silent
-            print(f"[warn] --vmap unavailable for opt={optim} adapter={adapter} "
-                  f"prompts={pm} ({e}); running sequentially")
-            sequential(optim, adapter, pm)
-            continue
-        for cfg, vec in zip(cfgs, aurocs):
-            report(vec.mean(), cfg.lr, optim, adapter, pm, cfg.seed)
+            cfgs = grid_cfgs(optim, adapter, pm)
+            try:
+                aurocs = sweep.run_vmapped_sweep(cfgs, bundle.train, bundle.val, bank_of(cfgs[0]),
+                                                 device=device)
+            except ValueError as e:
+                # a knob one program cannot serve (an lr schedule, no trainable
+                # adapter): fall back loudly, so K x E runs are never silent
+                print(f"[warn] --vmap unavailable for opt={optim} adapter={adapter} "
+                      f"prompts={pm} ({e}); running sequentially")
+                sequential(optim, adapter, pm)
+                continue
+            for cfg, vec in zip(cfgs, aurocs):
+                report(vec.mean(), cfg.lr, optim, adapter, pm, cfg.seed)
 
     # quick_auroc is NaN for a class whose val labels have one polarity; NaN
     # compares False everywhere, so a plain sort could print it as "best"

@@ -42,7 +42,7 @@ def main(argv=None) -> dict:
     bundle = common.load_bundle(args)
     bank = common.build_bank(args, device)
     results = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device,
-                             mesh=mesh)
+                             trace_dir=args.trace_dir, mesh=mesh)
     common.print_results(results)
     return results
 

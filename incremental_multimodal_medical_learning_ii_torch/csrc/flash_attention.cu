@@ -20,6 +20,9 @@
 // dtype before p.v, which sums in fp32; the row sum l sums the unrounded
 // p; a row with l == 0 is left at zero.  Normalisation is deferred to the
 // end instead of applied at every key tile (an fp32 rounding difference).
+// Given an ``lse`` buffer, both kernels also write each row's log-sum-exp
+// m + log(l) in natural units (fp32), the residual from which the backward
+// (csrc/flash_attention_bwd.cu) rebuilds P; without it nothing changes.
 //
 // Bound at BERT-base report length, (B, nh, S, hd) = (32, 12, 512, 64) in
 // bf16 with ragged lengths 64-512: the call moves 100.7 MB (q, k, v read
@@ -93,6 +96,7 @@ constexpr int kBlockK = 64;
 // DEFAULT_MASK_VALUE of the TPU kernel, rounded to float as it enters the sum
 constexpr float kMaskValue = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -106,6 +110,7 @@ struct Params {
   float scale;
   int self_segments;  // seg_q and seg_kv are one array: key tiles may be skipped
   int* tiles;         // null, or where the bf16 kernel adds the key tiles it computed
+  float* lse;         // null, or (B, nh, S) fp32: each row's m + log(l), for the backward
 };
 
 // ---------------------------------------------------------------------------
@@ -437,6 +442,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       lr += __shfl_xor_sync(0xffffffffu, lr, 1);
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
       if (row >= S) continue;
+      // the log-sum-exp in natural units: m is in log2 units, except in a
+      // row that shares no key's segment, whose max is the (unscaled) mask
+      // value and whose log(l) is below its ulp
+      if (p.lse != nullptr && tq == 0)
+        p.lse[((long long)b * gridDim.y + h) * S + row] =
+            (m[r] < 0.5f * kMaskValue ? m[r] : m[r] * kLn2) + logf(lr);
       const float inv = lr == 0.f ? 1.f : 1.f / lr;
       uint16_t* dst = og + (long long)row * p.o_s + 2 * tq;
 #pragma unroll
@@ -586,6 +597,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32_kernel(const Params p) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
+    if (p.lse != nullptr && tx == 0) p.lse[((long long)b * gridDim.y + h) * S + row] = m[i] + logf(l[i]);
     const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
 #pragma unroll
     for (int j = 0; j < kDj; ++j) og[(long long)row * p.o_s + tx + 16 * j] = acc[i][j] * inv;
@@ -643,13 +655,15 @@ cudaError_t launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
 // self_segments: seg_q and seg_kv are the same array, so the bf16 kernel
 // may skip key tiles that no query of a block can see.  tiles: null, or a
 // device int to which the bf16 kernel adds the (64-query block, 64-key
-// tile) pairs it computed.  Returns the CUDA error of the launch (0 =
-// launched).
+// tile) pairs it computed.  lse: null, or a contiguous (B, H, S) fp32
+// tensor that receives each row's log-sum-exp, the residual of the backward
+// (csrc/flash_attention_bwd.cu); o is the same with or without it.  Returns
+// the CUDA error of the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const void* seg_q, const void* seg_kv,
                                       const long long* strides, int B, int H, int S, int hd,
                                       int bf16, float scale, int self_segments, void* tiles,
-                                      void* stream) {
+                                      void* lse, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535 || (hd != 64 && hd != 128))
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -664,6 +678,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.scale = scale;
   p.self_segments = self_segments;
   p.tiles = (int*)tiles;
+  p.lse = (float*)lse;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16) return (int)(hd == 64 ? launch_bf16<64>(p, B, H, st) : launch_bf16<128>(p, B, H, st));
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);

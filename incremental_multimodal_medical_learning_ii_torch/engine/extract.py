@@ -24,7 +24,10 @@ The port:
 
 The encode functions are plain functions of (model, tensors on the model's
 device); the model is an argument of each call, as the JAX package passes
-its parameters.  ``trace_dir=`` raises "not yet ported".
+its parameters.  ``trace_dir=`` captures a ``torch.profiler`` trace of
+the run (``utils/profiling.py``) with each batch's dispatch and each
+window's readback in spans named ``extract_dispatch`` and
+``extract_readback``, as the JAX package names them.
 
 ``mesh=`` (``parallel/mesh.py``) runs the extraction on each rank of a
 data-parallel group, as the JAX package shards each batch over its mesh:
@@ -75,12 +78,10 @@ from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
     shard_bounds,
 )
 from incremental_multimodal_medical_learning_ii_torch.utils.device import readback, resolve_device
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate, maybe_trace
 from incremental_multimodal_medical_learning_ii_torch.utils.retry import retry_call
 
 ImageLabel = Tuple[np.ndarray, np.ndarray]  # (H, W) uint8, (5,) float32
-
-TRACE_NOT_PORTED = ("not yet ported: extraction's trace_dir= needs utils/profiling.py "
-                    "(ROADMAP Queue 1, item 9)")
 
 
 def make_encode_preprocessed_fn(dtype=torch.bfloat16, int8: bool = False):
@@ -270,8 +271,6 @@ def extract_embeddings(
         # 0 would make every flush a no-op: the window (and its host raw
         # buffers) grows unboundedly and no shard checkpoint is ever written
         raise ValueError(f"readback_interval must be >= 1, got {readback_interval}")
-    if trace_dir is not None:
-        raise NotImplementedError(TRACE_NOT_PORTED)
     if mesh is not None:
         if batch_size % mesh.size:
             raise ValueError(f"batch_size={batch_size} not divisible by the mesh's "
@@ -423,18 +422,19 @@ def extract_embeddings(
             return
         head = window[:k]
         del window[:k]
-        t0 = time.perf_counter()
+        with annotate("extract_readback"):
+            t0 = time.perf_counter()
 
-        def redispatch(_attempt, _e):
-            nonlocal head
+            def redispatch(_attempt, _e):
+                nonlocal head
+                if stats is not None:
+                    stats["retried_batches"] += len(head)
+                head = [(dispatch(w[1]), w[1], w[2], w[3]) for w in head]
+
+            arrs = retry_call(lambda: readback([w[0] for w in head]), retries, retry_backoff_s,
+                              on_retry=redispatch)
             if stats is not None:
-                stats["retried_batches"] += len(head)
-            head = [(dispatch(w[1]), w[1], w[2], w[3]) for w in head]
-
-        arrs = retry_call(lambda: readback([w[0] for w in head]), retries, retry_backoff_s,
-                          on_retry=redispatch)
-        if stats is not None:
-            stats["readback_s"] += time.perf_counter() - t0
+                stats["readback_s"] += time.perf_counter() - t0
         for (_, _, labels, n), arr in zip(head, arrs):
             handle(np.asarray(arr, dtype=np.float32), labels, n)
 
@@ -447,16 +447,18 @@ def extract_embeddings(
     if cuda:
         torch.backends.cudnn.benchmark = False
     try:
-        window: list = []  # (device result, host prepared, labels, n)
-        for prepared, labels, n in _prefetch(prepared_batches(), depth=prefetch_depth):
-            t0 = time.perf_counter()
-            window.append((dispatch(prepared), prepared, labels, n))
-            if stats is not None:
-                stats["dispatch_s"] += time.perf_counter() - t0
-                stats["batches"] += 1
-            if len(window) > readback_interval:
-                flush(window, readback_interval)  # keep the newest in flight
-        flush(window)
+        with maybe_trace(trace_dir, device):
+            window: list = []  # (device result, host prepared, labels, n)
+            for prepared, labels, n in _prefetch(prepared_batches(), depth=prefetch_depth):
+                with annotate("extract_dispatch"):
+                    t0 = time.perf_counter()
+                    window.append((dispatch(prepared), prepared, labels, n))
+                    if stats is not None:
+                        stats["dispatch_s"] += time.perf_counter() - t0
+                        stats["batches"] += 1
+                if len(window) > readback_interval:
+                    flush(window, readback_interval)  # keep the newest in flight
+            flush(window)
     finally:
         torch.backends.cudnn.benchmark = benchmark
     if store is not None and pending_embs:

@@ -47,8 +47,7 @@ from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     ContinualLearning,
     ExperimentConfig,
 )
-
-TRACE_NOT_PORTED = "not yet ported: --trace-dir needs utils/profiling.py (ROADMAP slice 8)"
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import maybe_trace
 
 
 @dataclasses.dataclass
@@ -59,11 +58,6 @@ class DataBundle:
     train: EmbeddingDataset
     val: EmbeddingDataset
     test: EmbeddingDataset
-
-
-def _check_trace(trace_dir: Optional[str]) -> None:
-    if trace_dir is not None:
-        raise NotImplementedError(TRACE_NOT_PORTED)
 
 
 def _make_writer(cfg: ExperimentConfig, log_dir: Optional[str]) -> TBWriter:
@@ -150,35 +144,39 @@ def run_zero_joint(
     trace_dir: Optional[str] = None,
     mesh=None,
 ) -> Dict[str, Dict[str, float]]:
-    """Zero-shot (epochs=0) or joint-train upper bound."""
-    _check_trace(trace_dir)
+    """Zero-shot (epochs=0) or joint-train upper bound.  ``trace_dir``
+    captures a ``torch.profiler`` trace of the whole train/eval loop (as
+    ``trace_dir`` does in the other two protocols; ``utils/profiling.py``)."""
     writer = _rank_writer(cfg, log_dir, mesh)
     trainer = Trainer(cfg, bank, writer, device, mesh)
     results: Dict[str, Dict[str, float]] = {}
     threshold = cfg.threshold
     try:
-        if cfg.epochs > 0:
-            # fused whole run: all epochs and their per-epoch val/test in
-            # one call; the loop below replays the logging and consumes
-            # the staged evals
-            fuse_run = trainer.joint_run_fusible(data.train, (data.val, data.test))
-            if cfg.fused_unit and not fuse_run:
-                print("[warn] --fused-unit: joint whole-run fusion disabled (train or "
-                      "val/test data is not a device-residentable EmbeddingDataset, or "
-                      "the fused eval machinery is off); running per-epoch")
-            if fuse_run:
-                trainer.train_joint_run(data.train, threshold, (data.val, data.test))
-            for epoch in range(1, cfg.epochs + 1):
+        with maybe_trace(trace_dir, trainer.device):
+            if cfg.epochs > 0:
+                # fused whole run: all epochs and their per-epoch val/test in
+                # one call; the loop below replays the logging and consumes
+                # the staged evals
+                fuse_run = trainer.joint_run_fusible(data.train, (data.val, data.test))
+                if cfg.fused_unit and not fuse_run:
+                    print("[warn] --fused-unit: joint whole-run fusion disabled (train or "
+                          "val/test data is not a device-residentable EmbeddingDataset, or "
+                          "the fused eval machinery is off); running per-epoch")
                 if fuse_run:
-                    trainer.emit_joint_epoch(epoch)
-                else:
-                    trainer.train(data.train, epoch, threshold=threshold, actual_task=epoch)
-                results[f"val_ep{epoch}"] = trainer.validate(data.val, epoch, cfg.epochs, mode="joint")
-                results[f"test_ep{epoch}"] = trainer.test(data.test, epoch, cfg.epochs, mode="joint")
-                writer.commit()
-        else:
-            results["val_zero"] = trainer.validate(data.val, 0, 0, mode="zero")
-            results["test_zero"] = trainer.test(data.test, 0, 0, mode="zero")
+                    trainer.train_joint_run(data.train, threshold, (data.val, data.test))
+                for epoch in range(1, cfg.epochs + 1):
+                    if fuse_run:
+                        trainer.emit_joint_epoch(epoch)
+                    else:
+                        trainer.train(data.train, epoch, threshold=threshold, actual_task=epoch)
+                    results[f"val_ep{epoch}"] = trainer.validate(data.val, epoch, cfg.epochs,
+                                                                 mode="joint")
+                    results[f"test_ep{epoch}"] = trainer.test(data.test, epoch, cfg.epochs,
+                                                              mode="joint")
+                    writer.commit()
+            else:
+                results["val_zero"] = trainer.validate(data.val, 0, 0, mode="zero")
+                results["test_zero"] = trainer.test(data.test, 0, 0, mode="zero")
     except BaseException:
         writer.discard()
         raise
@@ -225,7 +223,6 @@ def run_data_incremental(
     trace_dir: Optional[str] = None,
     mesh=None,
 ) -> Dict[str, Dict[str, float]]:
-    _check_trace(trace_dir)
     writer = _rank_writer(cfg, log_dir, mesh)
     trainer = Trainer(cfg, bank, writer, device, mesh)
     parts = split_contiguous(data.train, cfg.parts)
@@ -236,42 +233,43 @@ def run_data_incremental(
     schedule = _schedule(cfg, skip, remaining)
     use_prof = cfg.continual_learning == ContinualLearning.PROF_CL
     try:
-        units = [parts[p - 1] for p in remaining]
-        fold = trainer.incremental_run_fusible(units, (data.val, data.test))
-        if cfg.fused_unit and not fold and units:
-            print("[info] --fused-unit: whole-run fold unavailable (an empty unit, "
-                  "eval/train data not device-residentable, or epochs=0); one call per unit")
-        if fold:
-            trainer.train_incremental_run(
-                units, schedule,
-                use_my_cl_units=[cfg.continual_learning == ContinualLearning.MY_CL and p > 1
-                                 for p in remaining],
-                use_prof_units=[use_prof] * len(units),
-                eval_data=(data.val, data.test),
-            )
-        for i, part in enumerate(remaining):
-            count = _log_schedule(cfg, writer, schedule[i], count)
+        with maybe_trace(trace_dir, trainer.device):
+            units = [parts[p - 1] for p in remaining]
+            fold = trainer.incremental_run_fusible(units, (data.val, data.test))
+            if cfg.fused_unit and not fold and units:
+                print("[info] --fused-unit: whole-run fold unavailable (an empty unit, "
+                      "eval/train data not device-residentable, or epochs=0); one call per unit")
             if fold:
-                trainer.emit_incremental_unit(i, part=part, actual_task=part)
-            elif trainer.unit_fusible(parts[part - 1]):
-                trainer.train_unit(
-                    parts[part - 1], schedule[i], part=part, actual_task=part,
-                    use_prof=use_prof, eval_data=(data.val, data.test),
+                trainer.train_incremental_run(
+                    units, schedule,
+                    use_my_cl_units=[cfg.continual_learning == ContinualLearning.MY_CL and p > 1
+                                     for p in remaining],
+                    use_prof_units=[use_prof] * len(units),
+                    eval_data=(data.val, data.test),
                 )
-            else:
-                for epoch, thr in enumerate(schedule[i], start=1):
-                    if use_prof:
-                        trainer.model_copy()
-                    trainer.train(parts[part - 1], epoch, threshold=thr, part=part,
-                                  epochs=cfg.epochs, actual_task=part)
-                    if use_prof:
-                        trainer.prof_incremental(epoch, cfg.epochs, part, thr)
-            results[f"val_part{part}"] = trainer.validate(
-                data.val, part, cfg.parts, mode="data-inc", tasks_order=part)
-            results[f"test_part{part}"] = trainer.test(
-                data.test, part, cfg.parts, mode="data-inc", tasks_order=part)
-            _save_unit(trainer, writer, part)
-        _save_final(trainer, writer)
+            for i, part in enumerate(remaining):
+                count = _log_schedule(cfg, writer, schedule[i], count)
+                if fold:
+                    trainer.emit_incremental_unit(i, part=part, actual_task=part)
+                elif trainer.unit_fusible(parts[part - 1]):
+                    trainer.train_unit(
+                        parts[part - 1], schedule[i], part=part, actual_task=part,
+                        use_prof=use_prof, eval_data=(data.val, data.test),
+                    )
+                else:
+                    for epoch, thr in enumerate(schedule[i], start=1):
+                        if use_prof:
+                            trainer.model_copy()
+                        trainer.train(parts[part - 1], epoch, threshold=thr, part=part,
+                                      epochs=cfg.epochs, actual_task=part)
+                        if use_prof:
+                            trainer.prof_incremental(epoch, cfg.epochs, part, thr)
+                results[f"val_part{part}"] = trainer.validate(
+                    data.val, part, cfg.parts, mode="data-inc", tasks_order=part)
+                results[f"test_part{part}"] = trainer.test(
+                    data.test, part, cfg.parts, mode="data-inc", tasks_order=part)
+                _save_unit(trainer, writer, part)
+            _save_final(trainer, writer)
     except BaseException:
         writer.discard()
         raise
@@ -292,7 +290,6 @@ def run_class_incremental(
     trace_dir: Optional[str] = None,
     mesh=None,
 ) -> Dict[str, Dict[str, float]]:
-    _check_trace(trace_dir)
     writer = _rank_writer(cfg, log_dir, mesh)
     trainer = Trainer(cfg, bank, writer, device, mesh)
     if cfg.mode == "class-pos-neg":
@@ -321,54 +318,55 @@ def run_class_incremental(
     remaining = list(range(1 + skip, n_tasks + 1))
     schedule = _schedule(cfg, skip, remaining)
     try:
-        units = [tasks[t - 1] for t in remaining]
-        fold = trainer.incremental_run_fusible(units, (data.val, data.test))
-        if cfg.fused_unit and not fold and units:
-            print("[info] --fused-unit: whole-run fold unavailable (an empty unit, "
-                  "eval/train data not device-residentable, or epochs=0); one call per unit")
-        if fold:
-            trainer.train_incremental_run(
-                units, schedule,
-                use_my_cl_units=[cfg.continual_learning == ContinualLearning.MY_CL and t > 1
-                                 for t in remaining],
-                use_prof_units=[cfg.continual_learning == ContinualLearning.PROF_CL and t > 1
-                                for t in remaining],
-                current_tasks=[tasks_order[t - 1] for t in remaining],
-                more_labels=cfg.more_labels,
-                eval_data=(data.val, data.test),
-            )
-        for i, actual_task in enumerate(remaining):
-            count = _log_schedule(cfg, writer, schedule[i], count)
-            use_prof = cfg.continual_learning == ContinualLearning.PROF_CL and actual_task > 1
+        with maybe_trace(trace_dir, trainer.device):
+            units = [tasks[t - 1] for t in remaining]
+            fold = trainer.incremental_run_fusible(units, (data.val, data.test))
+            if cfg.fused_unit and not fold and units:
+                print("[info] --fused-unit: whole-run fold unavailable (an empty unit, "
+                      "eval/train data not device-residentable, or epochs=0); one call per unit")
             if fold:
-                last_batch = trainer.emit_incremental_unit(
-                    i, actual_task=actual_task, last_batch=last_batch)
-            elif trainer.unit_fusible(tasks[actual_task - 1]):
-                last_batch = trainer.train_unit(
-                    tasks[actual_task - 1], schedule[i], actual_task=actual_task,
-                    last_batch=last_batch, current_task=tasks_order[actual_task - 1],
-                    more_labels=cfg.more_labels, use_prof=use_prof,
+                trainer.train_incremental_run(
+                    units, schedule,
+                    use_my_cl_units=[cfg.continual_learning == ContinualLearning.MY_CL and t > 1
+                                     for t in remaining],
+                    use_prof_units=[cfg.continual_learning == ContinualLearning.PROF_CL and t > 1
+                                    for t in remaining],
+                    current_tasks=[tasks_order[t - 1] for t in remaining],
+                    more_labels=cfg.more_labels,
                     eval_data=(data.val, data.test),
                 )
-            else:
-                for epoch, thr in enumerate(schedule[i], start=1):
-                    if use_prof:
-                        trainer.model_copy()
-                    last_batch = trainer.train_class_incremental(
-                        tasks[actual_task - 1], epoch,
-                        current_task=tasks_order[actual_task - 1], last_batch=last_batch,
-                        threshold=thr, actual_task=actual_task, more_labels=cfg.more_labels,
+            for i, actual_task in enumerate(remaining):
+                count = _log_schedule(cfg, writer, schedule[i], count)
+                use_prof = cfg.continual_learning == ContinualLearning.PROF_CL and actual_task > 1
+                if fold:
+                    last_batch = trainer.emit_incremental_unit(
+                        i, actual_task=actual_task, last_batch=last_batch)
+                elif trainer.unit_fusible(tasks[actual_task - 1]):
+                    last_batch = trainer.train_unit(
+                        tasks[actual_task - 1], schedule[i], actual_task=actual_task,
+                        last_batch=last_batch, current_task=tasks_order[actual_task - 1],
+                        more_labels=cfg.more_labels, use_prof=use_prof,
+                        eval_data=(data.val, data.test),
                     )
-                    if use_prof:
-                        trainer.prof_incremental(epoch, cfg.epochs, actual_task, thr)
-            results[f"val_task{actual_task}"] = trainer.validate(
-                data.val, actual_task, cfg.epochs, mode=cfg.mode, tasks_order=tasks_order,
-                final_unit=n_tasks)
-            results[f"test_task{actual_task}"] = trainer.test(
-                data.test, actual_task, cfg.epochs, mode=cfg.mode, tasks_order=tasks_order,
-                final_unit=n_tasks)
-            _save_unit(trainer, writer, actual_task, extra={"last_batch": last_batch})
-        _save_final(trainer, writer)
+                else:
+                    for epoch, thr in enumerate(schedule[i], start=1):
+                        if use_prof:
+                            trainer.model_copy()
+                        last_batch = trainer.train_class_incremental(
+                            tasks[actual_task - 1], epoch,
+                            current_task=tasks_order[actual_task - 1], last_batch=last_batch,
+                            threshold=thr, actual_task=actual_task, more_labels=cfg.more_labels,
+                        )
+                        if use_prof:
+                            trainer.prof_incremental(epoch, cfg.epochs, actual_task, thr)
+                results[f"val_task{actual_task}"] = trainer.validate(
+                    data.val, actual_task, cfg.epochs, mode=cfg.mode, tasks_order=tasks_order,
+                    final_unit=n_tasks)
+                results[f"test_task{actual_task}"] = trainer.test(
+                    data.test, actual_task, cfg.epochs, mode=cfg.mode, tasks_order=tasks_order,
+                    final_unit=n_tasks)
+                _save_unit(trainer, writer, actual_task, extra={"last_batch": last_batch})
+            _save_final(trainer, writer)
     except BaseException:
         writer.discard()
         raise

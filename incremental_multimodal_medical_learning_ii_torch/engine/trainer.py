@@ -18,7 +18,10 @@ data (``cfg.fused_epoch``), and with ``cfg.fused_unit`` one call per unit
 or per whole run (joint: all epochs with their evals; incremental: every
 unit with its evals).  All three draw the epoch orders from the same
 counters (:meth:`Trainer._epoch_perm`) and log the same streams; metrics
-are read back once per epoch, unit or run.
+are read back once per epoch, unit or run.  Each fused call and each eval
+pass runs inside a named span of a profiler trace (``utils/profiling.py``:
+``fused-train-epoch``, ``fused-train-unit``, ``fused-joint-run``,
+``fused-incremental-run``, ``eval-pass``, the JAX trainer's names).
 
 ``mesh=`` (``parallel/mesh.py``) runs the trainer on each rank of a
 data-parallel group, as the JAX ``Trainer(mesh=)`` runs on a device mesh:
@@ -81,6 +84,7 @@ from incremental_multimodal_medical_learning_ii_torch.utils.device import (
     resolve_device,
     upload,
 )
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate
 
 
 def _unit_class_mask(current_task: Optional[int], more_labels: bool) -> np.ndarray:
@@ -431,11 +435,12 @@ class Trainer:
         number of batches run."""
         d_embs, d_labels, d_valid = self._device_data(dataset)
         perm = self._up(self._epoch_perm(len(dataset), int(d_embs.shape[0])))
-        self.state, stacked = self._fused_epoch(
-            self.state, d_embs, d_labels, d_valid, self.bank, self._up(class_mask),
-            self._scalar(threshold), perm,
-        )
-        fetched = readback(stacked)
+        with annotate("fused-train-epoch"):
+            self.state, stacked = self._fused_epoch(
+                self.state, d_embs, d_labels, d_valid, self.bank, self._up(class_mask),
+                self._scalar(threshold), perm,
+            )
+            fetched = readback(stacked)
         self._flush_epoch_metrics(fetched, class_mask, use_my_cl, iteration_of)
         return len(fetched["loss"])
 
@@ -491,7 +496,7 @@ class Trainer:
         )
         fetched, evals, _ = self._dispatch_fused_unit(
             dataset, eff, use_prof, "final" if fold_eval else None,
-            eval_data if fold_eval else None, class_mask,
+            eval_data if fold_eval else None, class_mask, "fused-train-unit",
         )
         if fold_eval:
             self._pending_eval = [(eval_data[0], evals[0]), (eval_data[1], evals[1])]
@@ -518,10 +523,11 @@ class Trainer:
         return self._fused_unit_cache[key]
 
     def _dispatch_fused_unit(self, dataset, eff_thresholds, use_prof, eval_mode, eval_data,
-                             class_mask):
+                             class_mask, tag):
         """Upload one fused-unit call's operands (the (E, n_pad) orders
         drawn through :meth:`_epoch_perm`, the (E,) thresholds, the eval
-        data), run it and read its metrics and evals back once.  Returns
+        data), run it and read its metrics and evals back once, inside a
+        trace span named ``tag``.  Returns
         ``(train_metrics, evals_or_None, device_epoch_states_or_None)``."""
         cfg = self.cfg
         n_epochs = len(eff_thresholds)
@@ -534,14 +540,15 @@ class Trainer:
             eval_ops = (*self._device_data(eval_data[0], cfg.eval_batch_size),
                         *self._device_data(eval_data[1], cfg.eval_batch_size))
         fused = self._get_fused_unit(use_prof, eval_mode)
-        out = fused(self.state, d_embs, d_labels, d_valid, self.bank, self._up(class_mask),
-                    d_thresholds, d_perms, *eval_ops)
-        self.state = out[0]
-        if eval_mode == "per_epoch":
-            return (*readback((out[1], out[2])), out[3])  # epoch states stay on the device
-        if eval_mode is not None:
-            return (*readback((out[1], out[2])), None)
-        return readback(out[1]), None, None
+        with annotate(tag):
+            out = fused(self.state, d_embs, d_labels, d_valid, self.bank, self._up(class_mask),
+                        d_thresholds, d_perms, *eval_ops)
+            self.state = out[0]
+            if eval_mode == "per_epoch":
+                return (*readback((out[1], out[2])), out[3])  # epoch states stay on the device
+            if eval_mode is not None:
+                return (*readback((out[1], out[2])), None)
+            return readback(out[1]), None, None
 
     # ------------------------------------------------------------------
     # Fused joint run: all epochs + per-epoch val/test in one call
@@ -564,6 +571,7 @@ class Trainer:
         eff = [(threshold if (use_my_cl and ep > 1) else 0.0) for ep in range(1, cfg.epochs + 1)]
         fetched, evals, epoch_states = self._dispatch_fused_unit(
             dataset, eff, False, "per_epoch", eval_data, np.ones(NUM_CLASSES, np.float32),
+            "fused-joint-run",
         )
         self._joint_fetched = fetched
         self._joint_evals = evals
@@ -668,11 +676,12 @@ class Trainer:
         val_ops = self._device_data(eval_data[0], cfg.eval_batch_size)
         test_ops = self._device_data(eval_data[1], cfg.eval_batch_size)
         fused = self._get_fused_run(any(use_prof_units))
-        self.state, stacked, evals, unit_states = fused(
-            self.state, self._up(embs), self._up(labels), self._up(valid), self.bank,
-            self._up(class_masks), self._up(eff), self._up(perms), *val_ops, *test_ops,
-        )
-        fetched, evals = readback((stacked, evals))
+        with annotate("fused-incremental-run"):
+            self.state, stacked, evals, unit_states = fused(
+                self.state, self._up(embs), self._up(labels), self._up(valid), self.bank,
+                self._up(class_masks), self._up(eff), self._up(perms), *val_ops, *test_ops,
+            )
+            fetched, evals = readback((stacked, evals))
         self._run_staging = {
             "fetched": fetched,            # {k: (U, E, n_b)} host arrays
             "evals": evals,                # ((U, ...) val, (U, ...) test), host
@@ -782,6 +791,11 @@ class Trainer:
     # Evaluation  —  Trainer.py:772-1072
     # ------------------------------------------------------------------
     def _eval_pass(self, dataset: EmbeddingDataset, epoch: int, log_loss_prefix: Optional[str]):
+        with annotate("eval-pass"):
+            return self._eval_pass_inner(dataset, epoch, log_loss_prefix)
+
+    def _eval_pass_inner(self, dataset: EmbeddingDataset, epoch: int,
+                         log_loss_prefix: Optional[str]):
         cfg = self.cfg
         n_b = num_batches(len(dataset), cfg.eval_batch_size)
         precomputed = None

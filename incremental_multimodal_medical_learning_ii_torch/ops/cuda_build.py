@@ -36,6 +36,7 @@ SOURCES = {
     "fused_cosine": "fused_cosine.cu",
     "fused_bottleneck": "fused_bottleneck.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = [

@@ -24,6 +24,7 @@ from torch_port_helpers import (  # noqa: F401
     assert_parity,
     biovil_numpy_params_from_port,
     one_torch_thread,
+    trace_spans,
 )
 
 EMB_ATOL = 2e-4  # the ResNet bar
@@ -163,7 +164,7 @@ def test_transient_errors_are_retried_and_counted(weights, monkeypatch):
         tex.extract_embeddings(iter(imgs), model, retries=1, retry_backoff_s=0.0, **kw)
 
 
-def test_refusals(weights, monkeypatch):
+def test_refusals(weights, monkeypatch, tmp_path):
     _, model = weights
     imgs = _images(2, 6)
     with pytest.raises(ValueError, match="readback_interval"):
@@ -173,8 +174,9 @@ def test_refusals(weights, monkeypatch):
     mesh = Mesh(rank=0, size=3, device=torch.device("cpu"), backend="gloo", group=None)
     with pytest.raises(ValueError, match="not divisible by the mesh's 3 data shards"):
         tex.extract_embeddings(iter(imgs), model, mesh=mesh, **KW)
-    with pytest.raises(NotImplementedError, match="not yet ported.*item 9"):
-        tex.extract_embeddings(iter(imgs), model, device="cpu", trace_dir="x", **KW)
+    # trace_dir= is ported: the run writes a trace with its spans
+    tex.extract_embeddings(iter(imgs), model, device="cpu", trace_dir=str(tmp_path), **KW)
+    assert trace_spans(tmp_path)["extract_dispatch"] == 1
     with pytest.raises(ValueError, match="requires a store"):
         tex.extract_embeddings(iter(imgs), model, device="cpu", resume=True, **KW)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

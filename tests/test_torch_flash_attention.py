@@ -75,11 +75,11 @@ def test_segment_semantics():
 
 
 def test_cpu_path_gradients_match_jax():
-    """On CPU tensors the wrapper differentiates (through mha_reference),
-    as the JAX library kernel does through its custom VJP: the gradients
-    of sum(out * w) at (1, 2, 128, 64), one row padded, match ``jax.grad``
-    through the Pallas kernel in interpret mode.  This is what a backward
-    kernel must match."""
+    """On CPU tensors the wrapper differentiates (through the plain forward
+    and backward, ``flash_attention_bwd_reference``), as the JAX library
+    kernel does through its custom VJP: the gradients of sum(out * w) at
+    (1, 2, 128, 64), one row padded, match ``jax.grad`` through the Pallas
+    kernel in interpret mode, as K3b's must on the card."""
     q, k, v, seg = _case(11, 1, 2, 128, 64, [100])
     w = np.random.default_rng(12).normal(size=q.shape).astype(np.float32)
     scale = 0.125

@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from torch_port_helpers import trace_spans
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "incremental_multimodal_medical_learning_ii_torch"
 FORBIDDEN = ("jax", "jaxlib", "incremental_multimodal_medical_learning_ii_tpu",
@@ -187,16 +189,18 @@ def test_extraction_entry_points_refuse_without_cuda(monkeypatch, tmp_path, entr
 def test_drivers_refuse_without_cuda_and_refuse_what_is_not_ported(monkeypatch, tmp_path, driver):
     """The drivers ask for CUDA unless ``--device cpu``, for their ranks too
     (``--mesh-devices 2`` starts none on the CPU when CUDA is absent);
-    figures, ``--tsne-plots`` and ``--trace-dir`` raise "not yet ported"
-    (before any data is read)."""
+    figures and ``--tsne-plots`` raise "not yet ported" (before any data is
+    read); ``--trace-dir`` writes a trace of the run."""
     import importlib
 
     main = importlib.import_module(
         f"incremental_multimodal_medical_learning_ii_torch.cli.{driver}").main
     base = ["--synthetic", "--epochs", "1", "--log-dir", str(tmp_path)]
-    for flags in (["--plot-figures", "final"], ["--tsne-plots"], ["--trace-dir", str(tmp_path)]):
+    for flags in (["--plot-figures", "final"], ["--tsne-plots"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             main([*base, *flags, "--device", "cpu"])
+    main([*base, "--trace-dir", str(tmp_path / "trace"), "--device", "cpu"])
+    assert trace_spans(tmp_path / "trace")["eval-pass"] >= 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for flags in ([], ["--mesh-devices", "2"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -292,7 +296,8 @@ def test_kernel_build_is_lazy_and_named_by_content():
     """Nothing builds at import; the library name follows the source."""
     from incremental_multimodal_medical_learning_ii_torch.ops import cuda_build
 
-    assert set(cuda_build.SOURCES) == {"fused_cosine", "fused_bottleneck", "flash_attention"}
+    assert set(cuda_build.SOURCES) == {"fused_cosine", "fused_bottleneck", "flash_attention",
+                                       "flash_attention_bwd"}
     for name, src in cuda_build.SOURCES.items():
         assert (cuda_build.CSRC_DIR / src).exists()
         path = cuda_build.library_path(name)

@@ -15,7 +15,7 @@ from incremental_multimodal_medical_learning_ii_torch.convert import params_from
 from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer as TTrainer
 from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair as TPair
 
-from torch_port_helpers import one_torch_thread, to_numpy_tree  # noqa: F401
+from torch_port_helpers import one_torch_thread, to_numpy_tree, trace_spans  # noqa: F401
 
 AUROC_ATOL = 1e-4
 
@@ -81,9 +81,13 @@ def test_dry_run_matches_jax(tmp_path, injected, capsys):
 
 
 def test_unported_flags_raise(tmp_path, monkeypatch):
-    for flags in (["--plot-figures", "final"], ["--trace-dir", str(tmp_path)]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t_repro.main(["--dry-run", "--device", "cpu", "--log-dir", str(tmp_path), *flags])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        t_repro.main(["--dry-run", "--device", "cpu", "--log-dir", str(tmp_path),
+                      "--plot-figures", "final"])
+    # --trace-dir is ported: the zero-shot gate's eval passes are spans of its trace
+    t_repro.main(["--dry-run", "--device", "cpu", "--log-dir", str(tmp_path), "--gates",
+                  "zero-shot", "--trace-dir", str(tmp_path / "trace")])
+    assert trace_spans(tmp_path / "trace")["eval-pass"] == 2
     # --mesh-devices is ported: more ranks than cards raise as the JAX CLI does
     import torch
 

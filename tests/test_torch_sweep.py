@@ -48,7 +48,12 @@ from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     ExperimentConfig,
 )
 
-from torch_port_helpers import assert_parity, one_torch_thread, to_numpy_tree  # noqa: F401
+from torch_port_helpers import (  # noqa: F401
+    assert_parity,
+    one_torch_thread,
+    to_numpy_tree,
+    trace_spans,
+)
 
 METRIC_ATOL = 1e-4  # the drivers' metric bar
 SEQUENTIAL_ATOL = 1e-5  # vmapped vs sequential (tests/test_sweep_vmap.py:71)
@@ -266,6 +271,12 @@ def test_cli_matches_jax_cli(monkeypatch, capsys, jax_init, case):
     assert ("[warn] --vmap unavailable" in port_out) == jax_vmap
 
 
-def test_trace_dir_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_cli.main(["--synthetic", "--trace-dir", "/nonexistent", "--device", "cpu"])
+def test_trace_dir_is_not_ported(tmp_path):
+    """``--trace-dir`` was not ported before the profiling tools were; now
+    one trace spans the whole grid, every point's fused epochs in it."""
+    t_cli.main(["--synthetic", "--epochs", "1", "--batch-size", "2048", "--lrs", "1e-3",
+                "--optims", "adam", "--adapters", "mlp", "--prompt-modes", "mean",
+                "--trace-dir", str(tmp_path / "trace"), "--device", "cpu"])
+    spans = trace_spans(tmp_path / "trace")
+    assert len(list((tmp_path / "trace").glob("*.pt.trace.json"))) == 1
+    assert spans["fused-train-epoch"] == 1

@@ -532,3 +532,20 @@ def text_partitions_on_rank(cases, wide, engine_case):
                                      mesh=meshes[part], partition=part, n_microbatches=2)
         out[f"engine {part}"] = {"out": engine.get_embeddings_from_prompt(prompts)}
     return out
+
+
+def trace_spans(trace_dir) -> dict:
+    """{span name: count} of the named spans (``annotate``) in the
+    profiler traces written into ``trace_dir`` (``*.pt.trace.json``)."""
+    import collections
+    import json
+    from pathlib import Path
+
+    files = sorted(Path(trace_dir).rglob("*.pt.trace.json"))
+    assert files, f"no trace written into {trace_dir}"
+    spans = collections.Counter()
+    for f in files:
+        for e in json.loads(f.read_text())["traceEvents"]:
+            if e.get("cat") == "user_annotation":
+                spans[e["name"]] += 1
+    return dict(spans)
