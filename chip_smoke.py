@@ -11,7 +11,7 @@ and without the final result line:
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
 2. build every hand-written kernel from ``csrc/`` (one ``nvcc`` per
    source, in parallel); the ``ptxas -v`` report of every instantiation (no
-   spills allowed in K3's bf16 kernel nor in K2);
+   spills allowed in K3's and K3b's bf16 kernels nor in K2);
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (fp32 with TF32 off); K2 at both
    serving crops, (3, 40, 24, 64) and ragged tiles ((3, 37, 21, 64), an
@@ -117,13 +117,17 @@ and without the final result line:
    of each gradient's largest entry) and bf16 (cos > 0.999 a tensor), from
    the forward's own o and log-sum-exp; the forward's o with the lse output
    equals o without it bit for bit, its lse equals the plain forward's;
+   the pairs each pass computed, counted on the card, are the predicate's;
+   with one id array skipping on equals skipping off (a copy of the ids)
+   bit for bit, and two launches give the same bits;
    (b) the gradient of sum(w * get_projected_text_embeddings(
    use_flash_attention=True)) at BERT-base, phase 9's batch, with respect
    to every parameter and the input embeddings, against the dense path
    (fp32 5e-5 of the largest gradient, bf16 cos > 0.999 a parameter), with
    K3's and K3b's launches read around it (12 each); (c) times: K3b in
-   turns with SDPA's backward, the plain backward, the forward with and
-   without the lse, the profiler's device time; (d) the profiling tools:
+   turns with itself with skipping off and with SDPA's backward, the plain
+   backward, the forward with and without the lse, the profiler's device
+   time, TFLOP/s, each K3b kernel's ``ptxas -v`` line; (d) the profiling tools:
    ``zero_joint_bounds --trace-dir`` (its spans and K1's kernel in the
    trace), ``extract_embeddings(trace_dir=)``, ``device_encode_rate`` at
    bench.py's shape with and without K2.
@@ -3165,6 +3169,7 @@ def partition_phase(bert, results) -> dict:
 # profiling tools (utils/profiling.py, chained_timing.py, device_bench.py)
 # ----------------------------------------------------------------------
 K3B_F32_REL = 1e-5  # of each gradient's largest entry, kernel vs plain backward, fp32 (TF32 off)
+K3B_BF16_KERNELS = ("flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel")  # on wgmma
 K3B_BF16_COS = 0.999  # per gradient tensor in bf16 (p and ds rounded to bf16 on both sides)
 LSE_REL = 1e-5  # the kernel's log-sum-exp vs the plain forward's, per row, of max(|lse|, 1)
 TEXT_GRAD_F32_ATOL = 5e-5  # of the largest gradient, flash vs dense (tests/test_sp.py:199)
@@ -3188,6 +3193,19 @@ def flash_bwd_bound_ms(q, seg):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations"), flops
 
 
+def flash_lse_bound_ms(q, seg):
+    """K3 with its lse output: ``flash_bound_ms``'s bytes plus the (B, nh,
+    S) fp32 log-sum-exp written once; the same operations."""
+    import torch
+
+    b, nh, s, hd = q.shape
+    _, _, flops, _ = flash_bound_ms(q, seg)
+    bytes_ = 4 * b * nh * s * hd * q.element_size() + 2 * seg.numel() * 4 + b * nh * s * 4
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    tb, tf = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
 def grad_metrics(got, ref) -> dict:
     """max |got - ref|, the same over the largest |ref|, and the cosine, in fp32."""
     got, ref = got.float(), ref.float()
@@ -3196,11 +3214,26 @@ def grad_metrics(got, ref) -> dict:
                 cos=float((got * ref).sum() / (got.norm() * ref.norm())))
 
 
+def k3b_pairs(q, seg_q, seg_kv) -> tuple:
+    """(predicted, total): the (64-query block, 64-key tile) pairs, summed
+    over heads, that each of K3b's passes computes by its predicate
+    (``key_tiles_needed``; every pair with two id arrays), and all pairs."""
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        key_tiles_needed,
+    )
+
+    needed = key_tiles_needed(seg_q, seg_kv, self_segments=seg_q is seg_kv)
+    return q.shape[1] * int(needed.sum()), q.shape[1] * needed.numel()
+
+
 def k3b_checks(results) -> dict:
     """(17a) K3b against its plain backward on the card, at phase 8's
     cases, fp32 (TF32 off) and bf16, from the kernel forward's own o and
     log-sum-exp; the forward's o with the lse output equals o without it
-    bit for bit, and its lse equals the plain forward's."""
+    bit for bit, and its lse equals the plain forward's.  Each pass's
+    computed pairs, counted on the card, are the predicate's; with one id
+    array the gradients with skipping equal those without (a copy of the
+    ids as kv) bit for bit, and a second launch gives the same bits."""
     import torch
 
     from incremental_multimodal_medical_learning_ii_torch.ops import flash_attention as fa
@@ -3221,19 +3254,37 @@ def k3b_checks(results) -> dict:
             _, ref_lse = fa.mha_reference_with_lse(q.float(), k.float(), v.float(), seg, seg_kv,
                                                    scale)
             before = fa.flash_attention_bwd.launches
-            got = fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg_kv, scale)
+            tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg_kv, scale,
+                                         computed_tiles=tiles)
+            launched = fa.flash_attention_bwd.launches - before
             ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg_kv, scale)
             torch.cuda.synchronize()
             key = f"{name} {str(dtype).split('.')[-1]}"
             m = {g: grad_metrics(a, b) for g, a, b in zip(("dq", "dk", "dv"), got, ref)}
             lse_rel = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
-            out[key] = dict(o_bit_equal=torch.equal(o, plain_o), lse_rel=lse_rel, **m)
+            predicted, total = k3b_pairs(q, seg, seg_kv)
+            out[key] = dict(o_bit_equal=torch.equal(o, plain_o), lse_rel=lse_rel, **m,
+                            computed_tiles=tiles.tolist(), predicted_tiles=predicted,
+                            tiles=total)
+            if seg_kv is seg:  # skipping on against off (a copy as kv), and a second launch
+                off = fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg.clone(), scale)
+                again = fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale)
+                out[key]["skipping_bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, off))
+                out[key]["twice_bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, again))
             log(f"  (a) K3b {key}: " + ", ".join(f"{g} rel {v['rel']:.3e} cos {v['cos']:.8f}"
                                                  for g, v in m.items())
-                + f"; lse {lse_rel:.3e}; o with lse == o without: {out[key]['o_bit_equal']}")
+                + f"; lse {lse_rel:.3e}; o with lse == o without: {out[key]['o_bit_equal']}; "
+                f"pairs computed {tiles.tolist()} of {total} (predicate {predicted}); skipping "
+                f"== not: {out[key].get('skipping_bit_equal')}; twice equal: "
+                f"{out[key].get('twice_bit_equal')}")
             check(out[key]["o_bit_equal"], f"K3 {key}: the lse output changed o")
             check(lse_rel <= LSE_REL, f"K3 {key}: lse off by {lse_rel}")
-            check(fa.flash_attention_bwd.launches == before + 1, f"K3b {key} did not launch")
+            check(launched == 1, f"K3b {key} did not launch")
+            check(tiles.tolist() == [predicted, predicted],
+                  f"K3b {key}: pairs computed {tiles.tolist()}, the predicate keeps {predicted}")
+            check(out[key].get("skipping_bit_equal", True), f"K3b {key}: skipping changed a bit")
+            check(out[key].get("twice_bit_equal", True), f"K3b {key}: two launches differ")
             check(all(bool(torch.isfinite(t).all()) for t in got), f"K3b {key} not finite")
             for g, v in m.items():
                 if dtype == torch.float32:
@@ -3347,11 +3398,16 @@ def text_tower_gradients(model, ids, mask, results, profile: bool = False) -> di
     return out
 
 
+BLOCK_PAIR = 64 * 64  # (query, key) pairs of one (64-query block, 64-key tile) pair
+
+
 def k3b_times(results) -> dict:
-    """(17c) K3b (CUDA events, medians of 5 rounds in turns with the
-    backward of SDPA through a graph built beforehand), the plain backward,
-    the forward with and without its lse output, and the profiler's device
-    time, at report length in bf16 and fp32 and at hd 128."""
+    """(17c) K3b (CUDA events, medians of 5 rounds in turns with itself
+    with skipping off and with the backward of SDPA through a graph built
+    beforehand), the plain backward, the forward with and without its lse
+    output, and the profiler's device time, at report length in bf16 and
+    fp32 and at hd 128; the TFLOP/s on the pairs the masks need and on the
+    64 x 64 pairs computed; each K3b kernel's ``ptxas -v`` line."""
     import torch
     import torch.nn.functional as F
 
@@ -3375,10 +3431,19 @@ def k3b_times(results) -> dict:
         ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg, scale)
         lib_rel = max(grad_metrics(a, b)["rel"] for a, b in zip(lib, ref))
         del lib
+        seg_copy = seg.clone()  # kv ids that are another array: every pair computed
+        tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+        fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale, computed_tiles=tiles)
+        computed, total = int(tiles[0]), k3b_pairs(q, seg, seg)[1]
         med = alternating_ms(
             {"ms": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale),
+             "ms_skipping_off": lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg_copy,
+                                                               scale),
              "library_ms": lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)},
             iters=10)
+        # the five products of the backward over the 64 x 64 pairs computed
+        flops_computed = computed * BLOCK_PAIR * shape[3] * 10
+        lse_bound = flash_lse_bound_ms(q, seg)
         fwd = alternating_ms(
             {"forward_ms": lambda: fa._forward_kernel(q, k, v, seg, seg, scale, None, False),
              "forward_lse_ms": lambda: fa._forward_kernel(q, k, v, seg, seg, scale, None, True)},
@@ -3389,6 +3454,9 @@ def k3b_times(results) -> dict:
                 lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg, scale), 3,
                 warmup=1),
             bound_ms=bound, bound_by=by, flops_needed=flops, tflops_needed=flops / med["ms"] / 1e9,
+            pairs_computed=computed, pairs=total, skipped_tile_share=1.0 - computed / total,
+            forward_lse_bound_ms=lse_bound[0], forward_lse_bound_by=lse_bound[1],
+            tflops_computed=flops_computed / med["ms"] / 1e9,
             shape=list(shape), library_max_rel_vs_plain=lib_rel,
             kernel_device_ms=profiled_device_ms(
                 lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale),
@@ -3396,6 +3464,9 @@ def k3b_times(results) -> dict:
         log(f"  (c) K3b {name} {shape}: {json.dumps(times[name])}")
         del lib_out, leaves, ref
         torch.cuda.empty_cache()
+    for entry, rep in results["ptxas"].items():
+        if "flash_bwd_" in entry:
+            log(f"  (c) ptxas -v {entry}: {rep}")
     results["k3b_times"] = times
     return times
 
@@ -3537,26 +3608,33 @@ def main(argv=None) -> int:
     )
 
     t_start = time.perf_counter()
+
+    def phase(msg: str) -> None:  # a phase's header, with the script's elapsed seconds
+        log(f"{msg} (at {time.perf_counter() - t_start:.1f} s)")
+
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    log(f"[1] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    phase(f"[1] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     t0 = time.perf_counter()
     cuda_build.build()
     results["build_s"] = time.perf_counter() - t0
-    log(f"[2] built {sorted(cuda_build.SOURCES)} in {results['build_s']:.1f} s")
+    phase(f"[2] built {sorted(cuda_build.SOURCES)} in {results['build_s']:.1f} s")
     ptxas = ptxas_report(cuda_build)
     results["ptxas"] = ptxas
     for entry, rep in ptxas.items():
         log(f"  {entry}: {rep}")
     for entry, rep in ptxas.items():
-        if "flash_fwd_bf16_kernel" in entry or K2_KERNEL in entry:
+        if ("flash_fwd_bf16_kernel" in entry or K2_KERNEL in entry
+                or any(n in entry for n in K3B_BF16_KERNELS)):
             check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
                   f"{entry} spills: {rep}")
     check(sum("flash_fwd_bf16_kernel" in e for e in ptxas) == 2, "no ptxas report for K3 bf16")
     check(sum(K2_KERNEL in e for e in ptxas) == 2, "no ptxas report for K2's two instantiations")
     check(sum("flash_bwd_" in e for e in ptxas) == 10, "no ptxas report for K3b's ten kernels")
+    check(sum(any(n in e for n in K3B_BF16_KERNELS) for e in ptxas) == 4,
+          "no ptxas report for K3b's four bf16 kernels")
 
     if args.mesh_only:
         log("[15] the data-parallel mesh alone")
@@ -3568,52 +3646,52 @@ def main(argv=None) -> int:
                              CHEXPERT_COMPETITION_TASKS)
     model = init_biovil_image_model(torch.Generator().manual_seed(0))
 
-    log("[3] kernels vs plain versions")
+    phase("[3] kernels vs plain versions")
     folded, cases = kernel_checks(model, bank, results)
-    log("[4] small-input check")
+    phase("[4] small-input check")
     results["small_card_vs_cpu"] = small_parity(model, bank)
-    log("[5] serving path at full width")
+    phase("[5] serving path at full width")
     clfs, plain, images = serving(model, bank, results)
-    log("[6] HTTP")
+    phase("[6] HTTP")
     http_phase(clfs["mean"], images)
-    log("[7] times")
+    phase("[7] times")
     time_kernels(folded, cases, results)
     serving_times(clfs, plain, images, results)
     if args.profile:
         profile_window("one batch of 16", lambda: clfs["mean"].predict_arrays(images[:16]), results)
-    log("[8] flash attention vs its plain version")
+    phase("[8] flash attention vs its plain version")
     flash_checks(results)
-    log("[9] text tower at full width, report length")
+    phase("[9] text tower at full width, report length")
     bert, ids, mask = text_tower(results)
-    log("[10] prompt bank from weights through the CLI")
+    phase("[10] prompt bank from weights through the CLI")
     bank_from_weights(bert, images, results)
-    log("[11] times: flash attention, text encodes")
+    phase("[11] times: flash attention, text encodes")
     text_times(bert, ids, mask, results)
     if args.profile:
         profile_text(bert, ids, mask, results)
-    log("[12] the paper's experiment at the reference's scale: K1 at the eval shapes, then the "
+    phase("[12] the paper's experiment at the reference's scale: K1 at the eval shapes, then the "
         "three drivers on the card (loops under sync debug mode) and on the CPU")
     eval_names = eval_kernel_checks(bank, results)
     train = training(bank, results)
-    log("[13] extraction on the card: the CLI at its defaults and a resumed run, the indexed "
+    phase("[13] extraction on the card: the CLI at its defaults and a resumed run, the indexed "
         "path, the card against its CPU, the int8 trunk, the device encode with K2 against "
         "cuDNN, reproduce --rehearsal, serving --adapter-checkpoint")
     k2x = extraction(model, results, args.profile)
-    log("[14] phrase grounding through the CLI at full width (BioViL ResNet-50 at 480^2, "
+    phase("[14] phrase grounding through the CLI at full width (BioViL ResNet-50 at 480^2, "
         "BERT-base), the card against its CPU; dilated ResNet-50, ResNet-18 and the "
         "space-to-depth stem; the native store at the reference's scale")
     grounding(bert, results, args.profile)
     model_surface(results)
     native_store(bank, results)
-    log("[15] the data-parallel mesh: K1-mesh at two gloo ranks on the card; one NCCL rank "
+    phase("[15] the data-parallel mesh: K1-mesh at two gloo ranks on the card; one NCCL rank "
         "through the three drivers against no mesh (loops under sync debug mode); the same at "
         "two gloo ranks; extraction with mesh=; two NCCL ranks where two cards are visible")
     mesh = mesh_phase(results)
-    log("[16] sweeps at phase 12's scale (--vmap under sync debug mode, then sequentially; the "
+    phase("[16] sweeps at phase 12's scale (--vmap under sync debug mode, then sequentially; the "
         "card against its CPU) and the text tower's partitions at BERT-base on two ranks")
     swept = sweep_phase(bank, results)
     partition_phase(bert, results)
-    log("[17] K3b, the flash-attention backward: against its plain version, the text tower's "
+    phase("[17] K3b, the flash-attention backward: against its plain version, the text tower's "
         "gradient at BERT-base through it against the dense path, times; the profiling tools")
     k3b_checks(results)
     grads = text_tower_gradients(bert, ids, mask, results, args.profile)
@@ -3701,6 +3779,8 @@ def main(argv=None) -> int:
         ms=k3b["ms"], plain_ms=k3b["plain_ms"], bound_ms=k3b["bound_ms"],
         bound_by=k3b["bound_by"], library_ms=k3b["library_ms"],
         kernel_device_ms=k3b["kernel_device_ms"], tflops_needed=k3b["tflops_needed"],
+        tflops_computed=k3b["tflops_computed"], skipped_tile_share=k3b["skipped_tile_share"],
+        ms_skipping_off=k3b["ms_skipping_off"],
         forward_lse_ms=k3b["forward_lse_ms"], forward_ms=k3b["forward_ms"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

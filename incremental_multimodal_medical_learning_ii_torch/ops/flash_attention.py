@@ -21,8 +21,9 @@ Gradients: when grad mode is on and q, k or v requires grad, the call goes
 through an autograd function whose forward also keeps each row's
 log-sum-exp (the kernel's ``lse`` output) and whose backward is
 :func:`flash_attention_bwd`, the CUDA kernel ``csrc/flash_attention_bwd.cu``
-(the library's dK/dV and dQ kernels) on the card.  On the CPU the same
-function runs the plain versions, :func:`mha_reference_with_lse` and
+(the library's dK/dV and dQ kernels) on the card, which skips the same
+pairs as the bf16 forward, in both types and both passes.  On the CPU the
+same function runs the plain versions, :func:`mha_reference_with_lse` and
 :func:`flash_attention_bwd_reference`.  The backward differentiates once:
 a second order raises, as the library's ``NotImplementedError``.  Without
 grad the path is the forward alone, as before.
@@ -45,7 +46,8 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes
                                                           ctypes.c_void_p, ctypes.c_void_p,
                                                           ctypes.c_void_p]
 _Strides = ctypes.c_longlong * 12
-_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                                              ctypes.c_void_p, ctypes.c_void_p]
 _BwdStrides = ctypes.c_longlong * 24
 
 __all__ = ["MASK_VALUE", "flash_attention", "flash_attention_bwd", "flash_attention_bwd_reference",
@@ -287,22 +289,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+def _bwd_scratch_elems(b: int, nh: int, s: int, hd: int, dtype: torch.dtype) -> int:
+    """fp32 elements of K3b's scratch: the prologue's di rows (rounded up to
+    even) and 4 ints for each 64-row block of every batch row (the [min,
+    max] segment ids of both id arrays), rounded up to a multiple of 4; in
+    fp32 then each dK/dV CTA's share of dQ (a CTA holds 128 keys at hd 64,
+    64 at hd 128), which the third kernel sums."""
+    rows = b * nh * s
+    n = rows + (rows & 1) + 4 * b * (-(-s // BLOCK))
+    if dtype != torch.float32:
+        return n
+    keys = 2 * BLOCK if hd == 64 else BLOCK
+    return -(-n // 4) * 4 + b * nh * (-(-s // keys)) * s * hd
+
+
+def _tma_steps(t: torch.Tensor) -> bool:
+    """TMA steps every dimension longer than one by a positive stride (an
+    expanded dimension's stride 0 it cannot)."""
+    return all(st > 0 or n == 1 for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, segment_ids_q: torch.Tensor,
-                        segment_ids_kv: torch.Tensor, sm_scale: float = 1.0):
+                        segment_ids_kv: torch.Tensor, sm_scale: float = 1.0, *,
+                        computed_tiles: torch.Tensor | None = None):
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` from its
     output ``o``, its log-sum-exp ``lse`` ((B, nh, S) fp32, the forward's)
     and the output's gradient ``do``.
 
-    On CUDA this launches K3b (``csrc/flash_attention_bwd.cu``: the di
-    prologue, the dK/dV and the dQ kernels) and returns ``(B, S, nh, hd)``
+    On CUDA this launches K3b (``csrc/flash_attention_bwd.cu``: the
+    prologue, the dK/dV kernel, and the dQ kernel in bf16 or the sum of the
+    dK/dV CTAs' shares of dQ in fp32) and returns ``(B, S, nh, hd)``
     buffers seen as ``(B, nh, S, hd)``, the layout of the forward's
     output, which a fused QKV projection's split views take back; ``do``
     may have any strides (it is copied when the kernel cannot read it in
-    place).  For tensors on the CPU it takes
+    place).  When the two id arrays are one (:func:`_same_array`, as
+    ``models/cxr_bert.py`` passes its mask twice), both passes skip the
+    (64-query block, 64-key tile) pairs :func:`key_tiles_needed` rules
+    out, exactly; a copy of the ids as ``segment_ids_kv`` turns skipping
+    off.  ``computed_tiles``, on CUDA only, is a two-element int32 tensor on
+    q's card to which the dK/dV pass (element 0) and the dQ products
+    (element 1: the dQ pass in bf16, the dK/dV pass in fp32) add the pairs
+    they computed, summed over heads.  For tensors on the CPU it takes
     :func:`flash_attention_bwd_reference`."""
     tensors = (q, k, v, o, lse, do, segment_ids_q, segment_ids_kv)
-    if _check_devices("flash_attention_bwd", tensors):
+    on_cpu = _check_devices("flash_attention_bwd", tensors)
+    if computed_tiles is not None:
+        if computed_tiles.dtype != torch.int32 or computed_tiles.numel() != 2:
+            raise ValueError("computed_tiles: a two-element int32 tensor (the dK/dV pass's "
+                             f"count, the dQ pass's); got {computed_tiles.dtype} "
+                             f"{tuple(computed_tiles.shape)}")
+        if on_cpu or computed_tiles.device != q.device:
+            raise ValueError("computed_tiles: the kernel counts on the card, into a tensor on "
+                             f"q's card ({q.device}); got {computed_tiles.device}")
+    if on_cpu:
         return flash_attention_bwd_reference(q, k, v, o, lse, do, segment_ids_q, segment_ids_kv,
                                              sm_scale)
     b, nh, s, hd = _check_operands(q, k, v, segment_ids_q, segment_ids_kv)
@@ -313,22 +353,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError(f"expected a ({b}, {nh}, {s}) float32 lse; got {tuple(lse.shape)} "
                          f"{lse.dtype}")
     _check_layout("o", o)
-    if not _layout_ok(do):
+    if not (_layout_ok(do) and _tma_steps(do)):
         do = do.clone(memory_format=torch.contiguous_format)
     grads = tuple(torch.empty((b, s, nh, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
                   for _ in range(3))
     if b == 0 or s == 0 or nh == 0:
         return grads
     lse = lse.contiguous()
-    di = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(_bwd_scratch_elems(b, nh, s, hd, q.dtype), dtype=torch.float32,
+                          device=q.device)
+    self_segments = _same_array(segment_ids_q, segment_ids_kv)
     seg_q = segment_ids_q.to(torch.int32).contiguous()
-    seg_kv = segment_ids_kv.to(torch.int32).contiguous()
+    seg_kv = seg_q if self_segments else segment_ids_kv.to(torch.int32).contiguous()
     fn = launcher("flash_attention_bwd", "flash_attention_bwd_launch", _BWD_ARGTYPES)
     strides = _BwdStrides(*(st for t in (q, k, v, o, do, *grads) for st in t.stride()[:3]))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), *(g.data_ptr() for g in grads), seg_q.data_ptr(), seg_kv.data_ptr(),
-            ctypes.addressof(strides), b, nh, s, hd, int(q.dtype == torch.bfloat16),
-            float(sm_scale), current_stream(q))
+            scratch.data_ptr(), *(g.data_ptr() for g in grads), seg_q.data_ptr(),
+            seg_kv.data_ptr(), ctypes.addressof(strides), b, nh, s, hd,
+            int(q.dtype == torch.bfloat16), float(sm_scale), int(self_segments),
+            computed_tiles.data_ptr() if computed_tiles is not None else None, current_stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1

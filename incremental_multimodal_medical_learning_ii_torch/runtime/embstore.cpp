@@ -120,8 +120,7 @@ struct Batcher {
     // state: mutating order (resize can reallocate) or cursor under a live
     // fill() is a use-after-free / torn read.
     if (worker.joinable()) {
-      stop.store(true);
-      cv.notify_all();
+      request_stop();
       worker.join();
     }
     const uint64_t n = store->hdr.n;
@@ -183,9 +182,19 @@ struct Batcher {
     return valid;
   }
 
-  void finish() {
-    stop.store(true);
+  // stop is set under the mutex: a worker that has just found its wait
+  // predicate false (under the lock) is then already asleep when the notify
+  // comes, so the wake-up cannot be lost and a join cannot wait forever.
+  void request_stop() {
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      stop.store(true);
+    }
     cv.notify_all();
+  }
+
+  void finish() {
+    request_stop();
     if (worker.joinable()) worker.join();
   }
 

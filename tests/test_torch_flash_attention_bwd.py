@@ -153,19 +153,40 @@ def test_function_gradcheck_and_one_order_only():
     assert plain.grad_fn is None and torch.equal(plain, out.detach())
 
 
+def _c_argtypes(src: str, name: str) -> list:
+    """The ctypes type of each parameter of the C launcher ``name``: a
+    pointer is ``c_void_p``, an int ``c_int``, a float ``c_float``."""
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+    assert m, name
+    out = []
+    for param in m.group(1).split(","):
+        param = " ".join(param.split())
+        if "*" in param:
+            out.append(ctypes.c_void_p)
+        elif param.startswith("int "):
+            out.append(ctypes.c_int)
+        else:
+            assert param.startswith("float "), param
+            out.append(ctypes.c_float)
+    return out
+
+
 def test_backward_launcher_signature_matches_the_bound_argtypes():
     """The backward wrapper binds its launcher's ``argtypes`` once (ctypes
-    checks nothing against the C side): their number is the C launcher's;
-    the forward's launcher takes the ``lse`` pointer."""
+    checks nothing against the C side): they are the C launcher's, type by
+    type, the skip flag and the two-pass tile counter included; the
+    forward's launcher takes the ``lse`` pointer."""
     from incremental_multimodal_medical_learning_ii_torch.ops import cuda_build
 
     src = (cuda_build.CSRC_DIR / cuda_build.SOURCES["flash_attention_bwd"]).read_text()
+    assert _c_argtypes(src, "flash_attention_bwd_launch") == fa._BWD_ARGTYPES
+    assert fa._BWD_ARGTYPES.count(ctypes.c_void_p) == 15
     m = re.search(r'extern "C" int flash_attention_bwd_launch\(([^)]*)\)', src)
-    assert m and len(m.group(1).split(",")) == len(fa._BWD_ARGTYPES)
-    assert fa._BWD_ARGTYPES.count(ctypes.c_void_p) == 14
+    assert "int self_segments" in m.group(1) and "void* tiles" in m.group(1)
     fwd = (cuda_build.CSRC_DIR / cuda_build.SOURCES["flash_attention"]).read_text()
     m = re.search(r'extern "C" int flash_attention_launch\(([^)]*)\)', fwd)
     assert "void* lse" in m.group(1)
+    assert _c_argtypes(fwd, "flash_attention_launch") == fa._ARGTYPES
 
 
 def test_backward_refuses_foreign_devices():
@@ -238,3 +259,161 @@ def test_text_tower_flash_gradients_match_jax(tower):
     for k in ref:
         np.testing.assert_allclose(got[k] / scale, ref[k] / scale, rtol=0, atol=GRAD_ATOL,
                                    err_msg=k)
+
+
+def _ragged(seed, b, h, s, hd, lengths):
+    """fp32 q, k, v, do and (B, S) key-padding ids from ``lengths``."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, s, hd)).astype(np.float32))
+                   for _ in range(4))
+    seg = torch.from_numpy((np.arange(s)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32))
+    return q, k, v, do, seg, 1.0 / float(np.sqrt(hd))
+
+
+def _blocked_backward(q, k, v, o, lse, do, seg_q, seg_kv, scale, self_segments, shares=False):
+    """K3b's tile walk in fp32: the dK/dV pass takes a 64-key tile at a time
+    and walks the 64-query blocks in order, the dQ pass a query block at a
+    time over the key tiles; a pair that ``key_tiles_needed`` rules out
+    (one id array only) is not computed.  p and ds of a pair as the plain
+    backward forms them.  With ``shares`` (the fp32 kernels) dQ is formed
+    instead in the dK/dV pass: each CTA of ``shares`` key tiles adds its
+    tiles' ds k into its own share of every query block one of its tiles
+    needs (a tile it skips adds zeros), and the shares are summed in CTA
+    order.  Returns the gradients and the pairs each pass computed."""
+    b, _, s, _ = q.shape
+    needed = fa.key_tiles_needed(seg_q, seg_kv, self_segments)
+    n = needed.shape[1]
+    di = (o * do).sum(-1)
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+
+    def pair(bi, i, j):
+        qs, ks = slice(i * fa.BLOCK, (i + 1) * fa.BLOCK), slice(j * fa.BLOCK, (j + 1) * fa.BLOCK)
+        logits = q[bi, :, qs] @ k[bi, :, ks].transpose(-1, -2) * scale
+        same = seg_q[bi, qs, None] == seg_kv[bi, None, ks]
+        logits = logits + torch.where(same, 0.0, fa.MASK_VALUE)
+        rl = lse[bi, :, qs, None]
+        p = torch.exp(logits - rl)
+        p = torch.where(rl < 0.5 * fa.MASK_VALUE, p * (1.0 / s), p)
+        dp = do[bi, :, qs] @ v[bi, :, ks].transpose(-1, -2)
+        return p, (dp - di[bi, :, qs, None]) * p * scale, qs, ks
+
+    pairs = {"dkv": 0, "dq": 0}
+    for bi in range(b):
+        for j in range(n):  # dK/dV: a key tile over the query blocks
+            for i in range(n):
+                if needed[bi, i, j]:
+                    pairs["dkv"] += 1
+                    p, ds, qs, ks = pair(bi, i, j)
+                    dv[bi, :, ks] += p.transpose(-1, -2) @ do[bi, :, qs]
+                    dk[bi, :, ks] += ds.transpose(-1, -2) @ q[bi, :, qs]
+        if shares:  # dQ: the CTAs' shares, summed in CTA order
+            for i in range(n):
+                for c0 in range(0, n, shares):
+                    tiles = range(c0, min(c0 + shares, n))
+                    if not any(needed[bi, i, j] for j in tiles):
+                        continue
+                    share = 0
+                    for j in tiles:
+                        _, ds, qs, ks = pair(bi, i, j)
+                        if needed[bi, i, j]:
+                            pairs["dq"] += 1
+                            share = share + ds @ k[bi, :, ks]
+                    dq[bi, :, qs] += share
+            continue
+        for i in range(n):  # dQ: a query block over the key tiles
+            for j in range(n):
+                if needed[bi, i, j]:
+                    pairs["dq"] += 1
+                    _, ds, qs, ks = pair(bi, i, j)
+                    dq[bi, :, qs] += ds @ k[bi, :, ks]
+    return (dq, dk, dv), pairs
+
+
+@pytest.mark.parametrize("s,hd,lengths", [
+    (512, 64, [1, 63, 64, 65, 300, 512]),  # every edge of a 64-row block
+    (200, 64, [200, 1, 123]),              # a ragged last tile
+    (512, 64, [512, 512]),                 # nothing to skip
+    (256, 128, [256, 200, 130, 17]),       # hd 128
+])
+@pytest.mark.parametrize("shares", [0, 2], ids=["dq pass", "dq shares"])
+def test_backward_tile_skipping_is_exact(s, hd, lengths, shares):
+    """K3b's two passes skipping the pairs key_tiles_needed rules out (one
+    id array: BERT's key-padding masks) change no bit of a blocked walk's
+    gradients, which agree with the plain backward (held against the
+    Pallas kernel's VJP above); each pass computes the predicate's pairs.
+    Both ways of forming dQ: the bf16 kernels' dQ pass, and the fp32
+    kernels' shares of CTAs of two key tiles summed in order."""
+    q, k, v, do, seg, scale = _ragged(s + hd, len(lengths), 2, s, hd, lengths)
+    o, lse = fa.mha_reference_with_lse(q, k, v, seg, seg, scale)
+    skipping, pairs = _blocked_backward(q, k, v, o, lse, do, seg, seg, scale, True, shares)
+    every, all_pairs = _blocked_backward(q, k, v, o, lse, do, seg, seg, scale, False, shares)
+    needed = fa.key_tiles_needed(seg, seg, self_segments=True)
+    assert pairs == {"dkv": int(needed.sum()), "dq": int(needed.sum())}
+    assert all_pairs == {"dkv": needed.numel(), "dq": needed.numel()}
+    assert bool(needed.all()) == (lengths == [512, 512])
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg, scale)
+    for name, a, b, r in zip(("dq", "dk", "dv"), skipping, every, ref):
+        assert torch.equal(a, b), name
+        rel = float((a - r).abs().max() / r.abs().max())
+        print(f"PARITY blocked backward ({'shares' if shares else 'dq pass'}) {name} S={s} "
+              f"hd={hd} {lengths} vs the plain backward: "
+              f"max |walk - plain| / largest = {rel:.3e} (bar {ATOL:g})")
+        assert rel <= ATOL, (name, rel)
+
+
+def test_backward_two_id_arrays_skip_nothing():
+    """With two id arrays (queries whose segment no key shares: their
+    softmax is uniform) the walk computes every pair and still agrees with
+    the plain backward; the predicate keeps every pair."""
+    q, k, v, do, seg_q, scale = _ragged(5, 2, 2, 200, 64, [200, 150])
+    seg_kv = seg_q.clone()
+    seg_kv[1] = 7  # row 1's queries share no key's segment
+    o, lse = fa.mha_reference_with_lse(q, k, v, seg_q, seg_kv, scale)
+    assert bool((lse[1] < 0.5 * fa.MASK_VALUE).all())
+    grads, pairs = _blocked_backward(q, k, v, o, lse, do, seg_q, seg_kv, scale, False)
+    assert bool(fa.key_tiles_needed(seg_q, seg_kv, self_segments=False).all())
+    assert pairs == {"dkv": 2 * 4 * 4, "dq": 2 * 4 * 4}
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg_q, seg_kv, scale)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        rel = float((a - r).abs().max() / r.abs().max())
+        print(f"PARITY blocked backward {name}, two id arrays: max |walk - plain| / largest = "
+              f"{rel:.3e} (bar {ATOL:g})")
+        assert rel <= ATOL, (name, rel)
+
+
+def test_backward_computed_tiles_is_for_the_kernel_only():
+    """The pair counts come from the kernel on the card: the wrapper
+    refuses a counter of the wrong type or size, and any counter beside CPU
+    operands (the plain backward computes every pair), instead of leaving it
+    at zero."""
+    q, k, v, do, seg, scale = _ragged(9, 1, 2, 64, 64, [40])
+    o, lse = fa.mha_reference_with_lse(q, k, v, seg, seg, scale)
+    with pytest.raises(ValueError, match="two-element int32"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale,
+                               computed_tiles=torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="two-element int32"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale,
+                               computed_tiles=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="on the card"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale,
+                               computed_tiles=torch.zeros(2, dtype=torch.int32))
+    for a, b in zip(fa.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, scale),
+                    fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg, scale)):
+        assert torch.equal(a, b)
+
+
+def test_backward_scratch_and_tma_strides():
+    """The scratch the wrapper allocates holds the di rows (rounded up to
+    even, so the ranges that follow are 8-byte aligned) and 4 ints a 64-row
+    block of every batch row; an expanded ``do`` (stride 0 along a
+    dimension longer than one, which TMA cannot step) is copied."""
+    assert fa._bwd_scratch_elems(2, 12, 512, 64, torch.bfloat16) == 2 * 12 * 512 + 4 * 2 * 8
+    assert fa._bwd_scratch_elems(1, 1, 77, 64, torch.bfloat16) == 78 + 4 * 2
+    # fp32: + the shares of dQ, (B, nh, CTAs of 128 keys (64 at hd 128), S, hd), 16-byte aligned
+    assert fa._bwd_scratch_elems(1, 1, 77, 64, torch.float32) == 88 + 77 * 64
+    assert fa._bwd_scratch_elems(2, 12, 512, 128, torch.float32) == (
+        2 * 12 * 512 + 4 * 2 * 8 + 2 * 12 * 8 * 512 * 128)
+    x = torch.zeros(2, 1, 8, 64)
+    assert fa._tma_steps(x) and fa._tma_steps(torch.zeros(2, 3, 8, 64))
+    assert not fa._tma_steps(x.expand(2, 3, 8, 64))
+    assert fa._tma_steps(torch.zeros(1, 3, 8, 64)[:, :1])
