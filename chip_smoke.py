@@ -11,7 +11,8 @@ and without the final result line:
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
 2. build every hand-written kernel from ``csrc/`` (one ``nvcc`` per
    source, in parallel); the ``ptxas -v`` report of every instantiation (no
-   spills allowed in K3's and K3b's bf16 kernels nor in K2);
+   spills allowed in K3's bf16 and fp32 kernels, K3b's bf16 kernels nor
+   K2);
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (fp32 with TF32 off); K2 at both
    serving crops, (3, 40, 24, 64) and ragged tiles ((3, 37, 21, 64), an
@@ -35,23 +36,23 @@ and without the final result line:
    S = 77 and 200 with padding, a row with one valid token, lengths on
    every edge of a 64-row block, a batch with every row full, and queries
    whose segment no key shares (different q and kv ids), in fp32 (TF32
-   off) and bf16; the bf16 kernel with key-tile skipping equals itself
-   without (kv ids cloned) bit for bit, and the key tiles it computed,
-   counted on the card, are the ones its predicate keeps;
+   off) and bf16; in both types the kernel with key-tile skipping equals
+   itself without (kv ids cloned) bit for bit, and the key tiles it
+   computed, counted on the card, are the ones its predicate keeps;
 9. the CXR-BERT text tower at full width (BERT-base, seeded random
    weights) and report length (batch 32, seq 512, ragged masks):
    ``get_projected_text_embeddings(use_flash_attention=True)`` against the
    dense path, in bf16 and fp32, with the flash kernel's launches read
-   around it (12 per encode);
+   around it (12 per encode, the fp32 encode's read on their own);
 10. the prompt bank from weights in the reference's formats, through the
    classify CLI on the card: a BERT-base state dict (``torch.save``) +
    vocab, and an HF snapshot directory; both banks agree and match the CPU
    build; one batch served with the bank;
 11. times: the flash kernel (CUDA events, in turns with SDPA as the
-   library yardstick and with skipping off; the plain version) in bf16 at
-   report length and hd 128 and in fp32, text encodes in prompts/s (flash
-   and dense at report length, dense at the bank's shape) and the bank
-   build;
+   library yardstick and with skipping off; the plain version) in bf16 and
+   fp32 at report length and at hd 128, with the key tiles it computed;
+   text encodes in prompts/s (flash and dense at report length in bf16 and
+   fp32, dense at the bank's shape) and the bank build;
 12. the paper's experiment at the reference's scale (191,027 / 16,027 /
    2,048 rows of synthetic 128-d embeddings, bs 6144, eval bs 1024, MLP
    double adapter, Adam lr 1e-4, 10 epochs, the synthetic bank): K1 against
@@ -124,7 +125,8 @@ and without the final result line:
    use_flash_attention=True)) at BERT-base, phase 9's batch, with respect
    to every parameter and the input embeddings, against the dense path
    (fp32 5e-5 of the largest gradient, bf16 cos > 0.999 a parameter), with
-   K3's and K3b's launches read around it (12 each); (c) times: K3b in
+   K3's and K3b's launches read around it (12 each), one gradient's time
+   through flash and dense in turns, in bf16 and fp32; (c) times: K3b in
    turns with itself with skipping off and with SDPA's backward, the plain
    backward, the forward with and without the lse, the profiler's device
    time, TFLOP/s, each K3b kernel's ``ptxas -v`` line; (d) the profiling tools:
@@ -169,6 +171,7 @@ LAYER_SHAPES = [(16, 128, 128, 64), (2, 120, 120, 64)]  # 512^2 batch 16; the 48
 # + a small crop, and K2's ragged 8 x 8 tiles: on both axes, and an image smaller than a tile
 LAYER_CHECK_SHAPES = LAYER_SHAPES + [(3, 40, 24, 64), (3, 37, 21, 64), (1, 5, 7, 64)]
 K2_KERNEL = "bottleneck_block_kernel"
+K3_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")  # hd 64 and 128 each
 LAYER_REL = 0.02  # one block, kernel vs plain from the same input
 LAYER_CHAIN_REL = 0.06  # the three chained blocks (see kernel_checks)
 LAYER_COS = 0.9999
@@ -818,6 +821,7 @@ def profile_text(model, ids, mask, results):
 # kernel 3 (flash attention) and the CXR-BERT text tower
 # ----------------------------------------------------------------------
 REPORT = (32, 12, 512, 64)  # BERT-base at report length: (B, nh, S, hd)
+BLOCK_PAIR = 64 * 64  # (query, key) pairs of one (64-query block, 64-key tile) pair
 
 
 def ragged_lengths(n: int, seq: int, seed: int):
@@ -853,8 +857,8 @@ def flash_bound_ms(q, seg):
 
 
 def computed_tiles(q, k, v, seg_q, seg_kv, scale) -> int:
-    """The (64-query block, 64-key tile) pairs that one bf16 launch
-    computed, summed over heads, as the kernel counts them on the card."""
+    """The (64-query block, 64-key tile) pairs that one launch computed,
+    summed over heads, as the kernel counts them on the card."""
     import torch
 
     from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
@@ -867,10 +871,10 @@ def computed_tiles(q, k, v, seg_q, seg_kv, scale) -> int:
 
 
 def tile_counts(q, k, v, seg, scale) -> dict:
-    """Key tiles of one bf16 call with self segment ids, counted on the
-    card, against the predicate's count (``key_tiles_needed``, per head)
-    and the pairs there are; the kernel with kv ids that are a copy (no
-    skipping) must compute every pair."""
+    """Key tiles of one call with self segment ids (bf16 or fp32), counted
+    on the card, against the predicate's count (``key_tiles_needed``, per
+    head) and the pairs there are; the kernel with kv ids that are a copy
+    (no skipping) must compute every pair."""
     from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
         key_tiles_needed,
     )
@@ -942,23 +946,25 @@ def flash_checks(results):
             check(dtype == torch.float32 or cos > FLASH_BF16_COS, f"flash {key}: cos {cos}")
     results["flash_check"] = out
 
-    # Skipping is exact: at report length the bf16 kernel with skipping
-    # (q and kv share one id array) equals itself without (a clone as kv)
-    # bit for bit, in every case above with self segments; and it skipped
-    # the tiles its predicate rules out, counted on the card
+    # Skipping is exact: in both types the kernel with skipping (q and kv
+    # share one id array) equals itself without (a clone as kv) bit for
+    # bit, in every case above with self segments; and it skipped the tiles
+    # its predicate rules out, counted on the card
     skips = {}
-    for i, (name, shape, lengths) in enumerate(cases):
-        if name.startswith("lonely"):
-            continue
-        q, k, v, seg, scale = flash_inputs(shape, lengths, torch.bfloat16, seed=10 + i)
-        same = torch.equal(flash_attention(q, k, v, seg, seg, scale),
-                           flash_attention(q, k, v, seg, seg.clone(), scale))
-        counts = tile_counts(q, k, v, seg, scale)
-        skips[name] = dict(bit_equal=same, **counts)
-        log(f"  K3 bf16 {name}: computed {counts['computed']} of {counts['tiles']} key tiles "
-            f"({counts['skipped_tile_share']:.4f} skipped, as the predicate says); with skipping "
-            f"== without: {same}")
-        check(same, f"flash {name}: skipping changed the result")
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, shape, lengths) in enumerate(cases):
+            if name.startswith("lonely"):
+                continue
+            q, k, v, seg, scale = flash_inputs(shape, lengths, dtype, seed=10 + i)
+            same = torch.equal(flash_attention(q, k, v, seg, seg, scale),
+                               flash_attention(q, k, v, seg, seg.clone(), scale))
+            counts = tile_counts(q, k, v, seg, scale)
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            skips[key] = dict(bit_equal=same, **counts)
+            log(f"  K3 {key}: computed {counts['computed']} of {counts['tiles']} key tiles "
+                f"({counts['skipped_tile_share']:.4f} skipped, as the predicate says); with "
+                f"skipping == without: {same}")
+            check(same, f"flash {key}: skipping changed the result")
     results["flash_skip_check"] = skips
 
 
@@ -1010,10 +1016,12 @@ def text_tower(results):
         t0 = time.perf_counter()
         proj_bf = get_projected_text_embeddings(model, ids, mask, dtype=bf16, use_flash_attention=True)
         hid_bf = bert_encode(model, ids, mask, dtype=bf16, use_flash_attention=True)
+        bf16_flash = flash_attention.launches
         proj_32 = get_projected_text_embeddings(model, ids, mask, use_flash_attention=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in counters}
+        launches["flash_attention fp32 encode"] = flash_attention.launches - bf16_flash
         dense_proj_bf = get_projected_text_embeddings(model, ids, mask, dtype=bf16)
         dense_hid_bf = bert_encode(model, ids, mask, dtype=bf16)
         dense_proj_32 = get_projected_text_embeddings(model, ids, mask)
@@ -1021,6 +1029,8 @@ def text_tower(results):
         f"in {wall:.3f} s; launches {launches}")
     check(launches["flash_attention"] == 3 * model.dims.num_layers,
           f"flash_attention launched {launches['flash_attention']} times, not 12 per encode")
+    check(launches["flash_attention fp32 encode"] == model.dims.num_layers,
+          f"the fp32 encode launched flash_attention {launches['flash_attention fp32 encode']} times")
     check(hid_bf.shape == (32, 512, 768) and proj_bf.shape == proj_32.shape == (32, 128),
           "text tower output shapes")
     check(all(bool(torch.isfinite(t).all()) for t in (proj_bf, hid_bf, proj_32)), "not finite")
@@ -1175,7 +1185,8 @@ def text_times(model, ids, mask, results):
     for name, shape, lengths, dtype in (
             ("bfloat16", REPORT, report_lengths, torch.bfloat16),
             ("float32", REPORT, report_lengths, torch.float32),
-            ("bfloat16 hd128", (4, 4, 256, 128), [256, 200, 130, 17], torch.bfloat16)):
+            ("bfloat16 hd128", (4, 4, 256, 128), [256, 200, 130, 17], torch.bfloat16),
+            ("float32 hd128", (4, 4, 256, 128), [256, 200, 130, 17], torch.float32)):
         q, k, v, seg, scale = flash_inputs(shape, lengths, dtype, seed=10)
         allowed = (seg[:, :, None] == seg[:, None, :])[:, None]  # (B, 1, S, S)
         lib = F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=scale).float()
@@ -1187,8 +1198,8 @@ def text_times(model, ids, mask, results):
         fns = {"ms": lambda: flash_attention(q, k, v, seg, seg, scale),
                "library_ms": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
                                                                      scale=scale)}
-        if bf16:  # the same kernel with skipping off: kv ids are a copy
-            fns["no_skip_ms"] = lambda: flash_attention(q, k, v, seg, seg_copy, scale)
+        # the same kernel with skipping off: kv ids are a copy
+        fns["no_skip_ms"] = lambda: flash_attention(q, k, v, seg, seg_copy, scale)
         med = alternating_ms(fns, iters=50)
         kernel = f"flash_fwd_{'bf16' if bf16 else 'f32'}_kernel"
         times[name] = dict(
@@ -1198,8 +1209,9 @@ def text_times(model, ids, mask, results):
             library_max_abs_vs_plain=float((lib - ref).abs().max()),
             kernel_device_ms=profiled_device_ms(lambda: flash_attention(q, k, v, seg, seg, scale),
                                                 flash_attention, kernel, med["ms"], bound))
-        if bf16:  # the skipped share, counted by the kernel (fp32 computes every tile)
-            times[name].update(tile_counts(q, k, v, seg, scale))
+        counts = tile_counts(q, k, v, seg, scale)  # the skipped share, counted by the kernel
+        times[name].update(counts, tflops_computed=counts["computed"] * BLOCK_PAIR * 4 * shape[3]
+                           / med["ms"] / 1e9)
         log(f"  K3 {name} {shape}: {json.dumps(times[name])}")
     results["flash_times"] = times
 
@@ -1212,6 +1224,8 @@ def text_times(model, ids, mask, results):
         for name, (i, m, dtype, flash) in {
             "report (32, 512) bf16 flash": (ids, mask, torch.bfloat16, True),
             "report (32, 512) bf16 dense": (ids, mask, torch.bfloat16, False),
+            "report (32, 512) fp32 flash": (ids, mask, torch.float32, True),
+            "report (32, 512) fp32 dense": (ids, mask, torch.float32, False),
             "bank (256, 32) fp32 dense": (short_ids, short_mask, torch.float32, False),
             "bank (256, 32) bf16 dense": (short_ids, short_mask, torch.bfloat16, False),
         }.items():
@@ -3379,11 +3393,15 @@ def text_tower_gradients(model, ids, mask, results, profile: bool = False) -> di
             else:
                 check(cos_min > TEXT_GRAD_BF16_COS, f"bf16 gradients: cos {cos_min} ({worst})")
             del flash, dense
-        # one gradient of the batch in bf16, flash against dense, in turns
+        # one gradient of the batch, flash against dense, in turns: bf16, then fp32
         out["grad_ms"] = alternating_ms(
             {"flash": lambda: grads(torch.bfloat16, True),
              "dense": lambda: grads(torch.bfloat16, False)}, rounds=3, iters=2)
         log(f"  (b) bf16 gradient of the (32, 512) batch: {json.dumps(out['grad_ms'])} ms")
+        out["grad_ms_fp32"] = alternating_ms(
+            {"flash": lambda: grads(torch.float32, True),
+             "dense": lambda: grads(torch.float32, False)}, rounds=3, iters=2)
+        log(f"  (b) fp32 gradient of the (32, 512) batch: {json.dumps(out['grad_ms_fp32'])} ms")
         if profile:
             for flash in (True, False):
                 profile_window(f"one bf16 gradient of the (32, 512) batch, "
@@ -3396,9 +3414,6 @@ def text_tower_gradients(model, ids, mask, results, profile: bool = False) -> di
         torch.cuda.empty_cache()
     results["text_tower_gradients"] = out
     return out
-
-
-BLOCK_PAIR = 64 * 64  # (query, key) pairs of one (64-query block, 64-key tile) pair
 
 
 def k3b_times(results) -> dict:
@@ -3626,11 +3641,12 @@ def main(argv=None) -> int:
     for entry, rep in ptxas.items():
         log(f"  {entry}: {rep}")
     for entry, rep in ptxas.items():
-        if ("flash_fwd_bf16_kernel" in entry or K2_KERNEL in entry
+        if (any(n in entry for n in K3_KERNELS) or K2_KERNEL in entry
                 or any(n in entry for n in K3B_BF16_KERNELS)):
             check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
                   f"{entry} spills: {rep}")
-    check(sum("flash_fwd_bf16_kernel" in e for e in ptxas) == 2, "no ptxas report for K3 bf16")
+    for name in K3_KERNELS:
+        check(sum(name in e for e in ptxas) == 2, f"no ptxas report for {name}'s two head widths")
     check(sum(K2_KERNEL in e for e in ptxas) == 2, "no ptxas report for K2's two instantiations")
     check(sum("flash_bwd_" in e for e in ptxas) == 10, "no ptxas report for K3b's ten kernels")
     check(sum(any(n in e for n in K3B_BF16_KERNELS) for e in ptxas) == 4,
@@ -3725,6 +3741,17 @@ def main(argv=None) -> int:
              kernel_device_ms=k3["kernel_device_ms"],
              skipped_tile_share=k3["skipped_tile_share"], tflops_needed=k3["tflops_needed"]),
     ]
+    k3f = results["flash_times"]["float32"]
+    kernels.append(dict(  # K3 fp32 under the fp32 report-length encode (phase 9), timed at REPORT
+        name="flash_attention (fp32)", route="cuda", source=f"{PACKAGE}/csrc/flash_attention.cu",
+        replaces="incremental_multimodal_medical_learning_ii_tpu/models/cxr_bert.py:197",
+        launches=results["text_tower"]["launches"]["flash_attention fp32 encode"],
+        max_abs_err=results["flash_check"]["report (32,12,512,64) float32"]["max_abs_err"],
+        ms=k3f["ms"], plain_ms=k3f["plain_ms"], bound_ms=k3f["bound_ms"],
+        bound_by=k3f["bound_by"], library_ms=k3f["library_ms"],
+        kernel_device_ms=k3f["kernel_device_ms"], no_skip_ms=k3f["no_skip_ms"],
+        skipped_tile_share=k3f["skipped_tile_share"], tflops_needed=k3f["tflops_needed"],
+        tflops_computed=k3f["tflops_computed"]))
     for name in eval_names:  # K1 at the eval passes' shapes, launched by the training runs
         k = results["cosine_eval"][name]
         kernels.append(dict(

@@ -79,10 +79,47 @@
 //   another's wgmma (one CTA a multiprocessor was clearly slower on the
 //   H100).  hd 128 takes more than 128 registers, one CTA.
 //
-// fp32 (flash_fwd_f32_kernel, unchanged): 16 x 16 threads, each a 4 x 4
-// tile of S and a 4 x hd/16 tile of O, fp32 FMA on the CUDA cores (no
-// TF32: the parity default is fp32 at HIGHEST); Q, K, V and P in shared
-// memory; one stage.
+// fp32 design (flash_fwd_f32_kernel): the CUDA cores, since TF32 is ruled
+// out by the parity default (fp32 at HIGHEST), so the FMAs bound it.  Against
+// what held the first version back (scalar shared-memory reads, one for
+// every two FMAs; one stage of loads behind three barriers a tile; every key
+// tile computed):
+// * A CTA takes 128 queries in two halves, each half one 64-query block,
+//   the skip predicate's unit.  A thread holds 8 query rows (ty + 8 i) of S
+//   and O; kTx threads share a row: at hd 64 kTx = 8, so a thread holds an
+//   8 x 8 register micro-tile of S (keys tx + 8 j) and 8 columns of O (64
+//   threads a half, 128 a CTA); at hd 128 kTx = 16 (8 x 4 of S, 8 columns
+//   of O: 256 threads), since 8 x 16 of O beside 8 x 8 of S would spill.
+// * Q, K and V sit in shared memory in rows padded to hd + 4 floats and are
+//   read as float4, with no bank conflicts.  What bounds the products is the
+//   bytes that shared memory returns to the registers, 128 a clock a
+//   multiprocessor, the rate of its 128 FMAs: a broadcast float4 costs as
+//   much as any other (measured: making any operand's reads warp-uniform
+//   changed nothing), so only a larger micro-tile helps.  8 x 4 loads 1.5
+//   bytes an FMA (at most 67% of the FMA rate), 8 x 8 loads 1.0.  P goes
+//   through shared memory transposed (a key's 64 queries a row, padded to
+//   68, a thread's 8 queries in 8 neighbouring floats).
+// * cp.async, one buffer of K and one of V, loaded apart: K of the next
+//   tile loads under this tile's P V and V under the next tile's S.  Two
+//   __syncthreads a tile, each after the wait for the load it publishes and
+//   freeing the other buffer, and a named barrier a half between writing P
+//   and reading it.  At hd 64 that keeps the CTA at 105 KB of
+//   shared memory and at most 255 registers, so two CTAs share a
+//   multiprocessor; double-buffered K/V (140 KB, one CTA of four warps) was
+//   slower on the H100.  At hd 128 two K/V stages do not fit beside Q and P.
+// * Exact skipping of key tiles, by the same argument as the bf16 kernel's:
+//   with one id array each half skips a tile whose segment-id range is
+//   disjoint from its queries', and the CTA loads a tile that either half
+//   needs.  A skipped tile would add expf(mask - m) = 0 to a row whose max
+//   is a real logit and leave m alone; sums built before the first real
+//   tile are multiplied by alpha = expf(mask - real) = 0.  With ``tiles``
+//   set, the CTA adds the (64-query block, key tile) pairs it computed.
+// * The arithmetic is the first version's: fp32 FMAs along hd in order,
+//   the logit scaled and then the mask value added, keys past S at -inf,
+//   expf in natural units, alpha = expf(m - mx), the row sum reduced over
+//   the row's threads each tile (at hd 64 over 8 threads of 8 keys, not 16
+//   of 4: the one change of summation order), normalisation deferred to the
+//   end (a row with l = 0 left at zero), lse = m + logf(l).
 
 #include <limits.h>
 #include <math.h>
@@ -109,7 +146,7 @@ struct Params {
   int S;
   float scale;
   int self_segments;  // seg_q and seg_kv are one array: key tiles may be skipped
-  int* tiles;         // null, or where the bf16 kernel adds the key tiles it computed
+  int* tiles;         // null, or where the kernel adds the key tiles it computed
   float* lse;         // null, or (B, nh, S) fp32: each row's m + log(l), for the backward
 };
 
@@ -393,148 +430,269 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: CUDA cores, register micro-tiles, cp.async, exact key-tile skipping
 // ---------------------------------------------------------------------------
+constexpr int kF32Rows = 8;  // query rows of a thread: ty + 8 i, ty < 8
+
 template <int HD>
-constexpr int f32_smem_bytes() {
-  return (2 * kBlockQ * (HD + 1) + kBlockK * HD + kBlockQ * (kBlockK + 1)) * 4 + kBlockK * 4;
+struct F32Layout {
+  // kTx threads share a query row: a thread holds 64 / kTx keys of S and
+  // HD / kTx columns of O.  A half (8 kTx threads) owns one 64-query block.
+  static constexpr int kTx = HD == 64 ? 8 : 16;
+  static constexpr int kKeys = kBlockK / kTx;  // S columns of a thread: tx + kTx jj
+  static constexpr int kCols = HD / kTx;       // O columns of a thread: 4 tx + 4 kTx c + e
+  static constexpr int kHalf = 8 * kTx;        // threads of a half
+  static constexpr int kThreads = 2 * kHalf;
+  static constexpr int kMinBlocks = HD == 64 ? 2 : 1;  // CTAs a multiprocessor
+  static constexpr int kLd = HD + 4;        // Q, K, V row stride, floats
+  static constexpr int kLdP = kBlockQ + 4;  // P^T row stride: a key's 64 queries
+  // float offsets in dynamic shared memory
+  static constexpr int kQ = 0;                           // kTileQ x kLd
+  static constexpr int kK = kQ + kTileQ * kLd;           // 64 x kLd
+  static constexpr int kV = kK + kBlockK * kLd;          // 64 x kLd
+  static constexpr int kP = kV + kBlockK * kLd;          // 2 halves x 64 keys x kLdP
+  static constexpr int kSegK = kP + 2 * kBlockK * kLdP;  // int: 64
+  static constexpr int kSegQ = kSegK + kBlockK;          // int: kTileQ
+  static constexpr int kBytes = (kSegQ + kTileQ) * 4;
+};
+
+// A half's threads meet at named barrier 1 + half (0 is __syncthreads).
+template <int N>
+__device__ __forceinline__ void half_sync(int half) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(N) : "memory");
 }
 
 template <int HD>
-__global__ void __launch_bounds__(256) flash_fwd_f32_kernel(const Params p) {
-  constexpr int kLd = HD + 1;        // odd stride: 16 rows read at one column hit 16 banks
-  constexpr int kLdP = kBlockK + 1;
-  constexpr int kDj = HD / 16;       // O columns per thread
-  constexpr int kVec = HD / 4;       // float4 chunks in a row
-  extern __shared__ float smem[];
-  float* sq = smem;                  // kBlockQ x kLd
-  float* sk = sq + kBlockQ * kLd;    // kBlockK x kLd
-  float* sv = sk + kBlockK * kLd;    // kBlockK x HD
-  float* sp = sv + kBlockK * HD;     // kBlockQ x kLdP
-  int* sseg = reinterpret_cast<int*>(sp + kBlockQ * kLdP);
+__global__ void __launch_bounds__(F32Layout<HD>::kThreads, F32Layout<HD>::kMinBlocks)
+flash_fwd_f32_kernel(const Params p) {
+  using L = F32Layout<HD>;
+  constexpr int kLd = L::kLd, kLdP = L::kLdP, R = kF32Rows;
+  constexpr int kTx = L::kTx, kKeys = L::kKeys, kCols = L::kCols;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem + L::kQ;
+  float* sk = smem + L::kK;
+  float* sv = smem + L::kV;
+  int* ssegk = reinterpret_cast<int*>(smem + L::kSegK);
+  int* ssegq = reinterpret_cast<int*>(smem + L::kSegQ);
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;  // rows ty*4+i, columns tx+16j
-  const int S = p.S;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTileQ;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int half = tid / L::kHalf, ty = (tid % L::kHalf) / kTx, tx = tid % kTx;
+  const int S = p.S, nt = (S + kBlockK - 1) / kBlockK;
   const float* qg = static_cast<const float*>(p.q) + b * p.q_b + h * p.q_h;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_b + h * p.k_h;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_b + h * p.v_h;
+  const int* segq = p.seg_q + (long long)b * S;
   const int* segkv = p.seg_kv + (long long)b * S;
+  float* sp = smem + L::kP + half * kBlockK * kLdP;  // this half's P^T: slot 8 ty + i = row ty + 8 i
 
-  for (int i = tid; i < kBlockQ * kVec; i += 256) {
-    const int r = i / kVec, c = (i % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < S) x = *reinterpret_cast<const float4*>(qg + (long long)(q0 + r) * p.q_s + c);
-    float* d = sq + r * kLd + c;
-    d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
-  }
-  int qseg[4];
+  BlockRange qr[2];
+  bool qvalid[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    qseg[i] = row < S ? p.seg_q[(long long)b * S + row] : 0;
+  for (int w = 0; w < 2; ++w) {
+    qr[w] = block_range(segq, q0 + w * kBlockQ, S, lane);
+    qvalid[w] = q0 + w * kBlockQ < S;
   }
+  // The next key tile from j on that a half needs, and which halves need
+  // it (bit w); every warp finds the same.  With one id array a half skips
+  // a tile whose segment ids share no value with its queries'.
+  auto next_tile = [&](int j, int& flags) {
+    for (; j < nt; ++j) {
+      flags = 0;
+      if (p.self_segments) {
+        const BlockRange kr = block_range(segkv, j * kBlockK, S, lane);
+#pragma unroll
+        for (int w = 0; w < 2; ++w)
+          if (qvalid[w] && qr[w].lo <= kr.hi && kr.lo <= qr[w].hi) flags |= 1 << w;
+      } else {
+        flags = (int)qvalid[0] | (int)qvalid[1] << 1;
+      }
+      if (flags != 0) return j;
+    }
+    return nt;
+  };
+  auto load_k = [&](int j) {  // K and the key ids of tile j
+    const int k0 = j * kBlockK;
+    load_rows<HD, L::kThreads>(sk, kg, p.k_s, k0, kBlockK, S);
+    if (tid < kBlockK) {
+      const bool in = k0 + tid < S;
+      cp_async4(ssegk + tid, segkv + (in ? k0 + tid : 0), in);
+    }
+  };
+  auto load_v = [&](int j) {
+    load_rows<HD, L::kThreads>(sv, vg, p.v_s, j * kBlockK, kBlockK, S);
+  };
 
-  float m[4], l[4], acc[4][kDj];
+  load_rows<HD, L::kThreads>(sq, qg, p.q_s, q0, kTileQ, S);
+  for (int r = tid; r < kTileQ; r += L::kThreads) ssegq[r] = q0 + r < S ? segq[q0 + r] : 0;
+  int flags;
+  int j = next_tile(0, flags);
+  if (j < nt) load_k(j);
+  cp_async_commit();  // Q, K and the ids; then V, a group of its own
+  if (j < nt) load_v(j);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // Q, the query ids, K and the key ids of the first tile are in place
+
+  float m[R], l[R], o[R][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kDj; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < kCols; ++c) o[i][c] = 0.f;
   }
+  const float* qrow = sq + (half * kBlockQ + ty) * kLd;  // this thread's rows, 8 rows apart
+  int pairs = 0;
 
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's P V is done (and Q is in place)
-    for (int i = tid; i < kBlockK * kVec; i += 256) {
-      const int r = i / kVec, c = (i % kVec) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < S) {
-        kv = *reinterpret_cast<const float4*>(kg + (long long)(k0 + r) * p.k_s + c);
-        vv = *reinterpret_cast<const float4*>(vg + (long long)(k0 + r) * p.v_s + c);
-      }
-      float* d = sk + r * kLd + c;
-      d[0] = kv.x; d[1] = kv.y; d[2] = kv.z; d[3] = kv.w;
-      *reinterpret_cast<float4*>(sv + r * HD + c) = vv;
-    }
-    if (tid < kBlockK) sseg[tid] = k0 + tid < S ? segkv[k0 + tid] : 0;
-    __syncthreads();
+  // Each tile: S and the softmax from K (in place), then V's wait and a
+  // barrier after which K is free for the next tile's, loading under P V;
+  // then that K's wait and a barrier after which V is free for the next
+  // tile's, loading under the next S.
+  while (j < nt) {
+    int next_flags;
+    const int jn = next_tile(j + 1, next_flags);
+    pairs += __popc(flags);
+    const bool mine = flags & (1 << half);
+    float s[R][kKeys];
+    if (mine) {
+      const int k0 = j * kBlockK;
 
-    float s[4][4];
+      // S = Q K^T: rows ty + 8 i, keys tx + kTx jj; the dot products run
+      // along hd in order, one fmaf a column, as the plain loop would
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float a[4], bk[4];
+        for (int jj = 0; jj < kKeys; ++jj) s[i][jj] = 0.f;
+#pragma unroll 1
+      for (int d = 0; d < HD; d += 4) {
+        float4 kv[kKeys];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sq[(ty * 4 + i) * kLd + d];
+        for (int jj = 0; jj < kKeys; ++jj)
+          kv[jj] = *reinterpret_cast<const float4*>(sk + (tx + kTx * jj) * kLd + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sk[(tx + 16 * j) * kLd + d];
+        for (int i = 0; i < R; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(qrow + 8 * i * kLd + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-    // The 16 threads of a row group are lanes 0-15 or 16-31 of one warp.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        float x = -INFINITY;  // past S: out of the softmax
-        if (k0 + col < S) {
-          x = s[i][j] * p.scale;
-          x = x + (sseg[col] == qseg[i] ? 0.f : kMaskValue);
+          for (int jj = 0; jj < kKeys; ++jj) {
+            s[i][jj] = fmaf(qv.x, kv[jj].x, s[i][jj]);
+            s[i][jj] = fmaf(qv.y, kv[jj].y, s[i][jj]);
+            s[i][jj] = fmaf(qv.z, kv[jj].z, s[i][jj]);
+            s[i][jj] = fmaf(qv.w, kv[jj].w, s[i][jj]);
+          }
         }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float alpha = expf(m[i] - mx);  // 0 on the first tile (m = -inf)
-      m[i] = mx;
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pv = expf(s[i][j] - mx);
-        rsum += pv;
-        sp[(ty * 4 + i) * kLdP + tx + 16 * j] = pv;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = rsum + alpha * l[i];
-#pragma unroll
-      for (int j = 0; j < kDj; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < kBlockK; ++c) {
-      float pv[4], vv[kDj];
+      // Scale, then mask; keys past S leave the softmax (-inf).  The kTx
+      // threads of a row group are neighbouring lanes of one warp; each
+      // step runs over all 8 rows at once, so their shuffle chains overlap.
+      int kseg[kKeys];
+      bool kin[kKeys];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sp[(ty * 4 + i) * kLdP + c];
+      for (int jj = 0; jj < kKeys; ++jj) {
+        kseg[jj] = ssegk[tx + kTx * jj];
+        kin[jj] = k0 + tx + kTx * jj < S;
+      }
+      float mx[R], alpha[R], rsum[R];
 #pragma unroll
-      for (int j = 0; j < kDj; ++j) vv[j] = sv[c * HD + tx + 16 * j];
+      for (int i = 0; i < R; ++i) {
+        const int qseg = ssegq[half * kBlockQ + ty + 8 * i];
+        mx[i] = m[i];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int jj = 0; jj < kKeys; ++jj) {
+          float x = -INFINITY;
+          if (kin[jj]) {
+            x = s[i][jj] * p.scale;
+            x = x + (kseg[jj] == qseg ? 0.f : kMaskValue);
+          }
+          s[i][jj] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
 #pragma unroll
-        for (int j = 0; j < kDj; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int off = kTx / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        alpha[i] = expf(m[i] - mx[i]);  // 0 on the first tile (m = -inf)
+        m[i] = mx[i];
+        rsum[i] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < kKeys; ++jj) {
+          s[i][jj] = expf(s[i][jj] - mx[i]);
+          rsum[i] += s[i][jj];
+        }
+      }
+#pragma unroll
+      for (int off = kTx / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i) rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], off);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        l[i] = rsum[i] + alpha[i] * l[i];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) o[i][c] *= alpha[i];
+      }
     }
+    cp_async_wait<0>();  // V of tile j
+    __syncthreads();     // V is in place; both halves are done with K and the key ids
+    if (jn < nt) load_k(jn);
+    cp_async_commit();
+    if (mine) {
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) {
+        float* dst = sp + (tx + kTx * jj) * kLdP + ty * R;
+        *reinterpret_cast<float4*>(dst) = make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(s[4][jj], s[5][jj], s[6][jj], s[7][jj]);
+      }
+      half_sync<L::kHalf>(half);  // the half's P is in place
+
+      // O += P V: rows ty + 8 i, columns 4 tx + 4 kTx c + e, keys in order
+      const float* prow = sp + ty * R;
+#pragma unroll 2
+      for (int t = 0; t < kBlockK; ++t) {
+        const float4 p0 = *reinterpret_cast<const float4*>(prow + t * kLdP);
+        const float4 p1 = *reinterpret_cast<const float4*>(prow + t * kLdP + 4);
+        const float pv[R] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        float vv[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols / 4; ++c) {
+          const float4 f = *reinterpret_cast<const float4*>(sv + t * kLd + 4 * kTx * c + 4 * tx);
+          vv[4 * c] = f.x;
+          vv[4 * c + 1] = f.y;
+          vv[4 * c + 2] = f.z;
+          vv[4 * c + 3] = f.w;
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) o[i][c] = fmaf(pv[i], vv[c], o[i][c]);
+      }
+    }
+    cp_async_wait<0>();  // K and the key ids of the next tile
+    __syncthreads();     // they are in place; both halves are done with V and P
+    if (jn < nt) load_v(jn);
+    cp_async_commit();
+    j = jn;
+    flags = next_flags;
   }
+  cp_async_wait<0>();
+  if (p.tiles != nullptr && tid == 0 && pairs > 0) atomicAdd(p.tiles, pairs);
 
   float* og = static_cast<float*>(p.o) + b * p.o_b + h * p.o_h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + half * kBlockQ + ty + 8 * i;
     if (row >= S) continue;
-    if (p.lse != nullptr && tx == 0) p.lse[((long long)b * gridDim.y + h) * S + row] = m[i] + logf(l[i]);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * gridDim.y + h) * S + row] = m[i] + logf(l[i]);
     const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
 #pragma unroll
-    for (int j = 0; j < kDj; ++j) og[(long long)row * p.o_s + tx + 16 * j] = acc[i][j] * inv;
+    for (int c = 0; c < kCols / 4; ++c)
+      *reinterpret_cast<float4*>(og + (long long)row * p.o_s + 4 * kTx * c + 4 * tx) =
+          make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv, o[i][4 * c + 2] * inv,
+                      o[i][4 * c + 3] * inv);
   }
 }
 
@@ -557,22 +715,23 @@ cudaError_t launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {
 }
 
 template <int HD>
-cudaError_t launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
-  constexpr int smem = f32_smem_bytes<HD>();
+cudaError_t launch_f32(const Params& p, int B, int H, cudaStream_t stream) {
+  constexpr int smem = F32Layout<HD>::kBytes;
   static std::atomic<unsigned long long> raised{0};
   const cudaError_t err = allow_smem((const void*)flash_fwd_f32_kernel<HD>, smem, raised);
   if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<HD><<<grid, 256, smem, stream>>>(p);
+  const dim3 grid((p.S + kTileQ - 1) / kTileQ, H, B);
+  flash_fwd_f32_kernel<HD><<<grid, F32Layout<HD>::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, row) of q, k, v and o in turn.
-// self_segments: seg_q and seg_kv are the same array, so the bf16 kernel
-// may skip key tiles that no query of a block can see.  tiles: null, or a
-// device int to which the bf16 kernel adds the (64-query block, 64-key
-// tile) pairs it computed.  lse: null, or a contiguous (B, H, S) fp32
+// self_segments: seg_q and seg_kv are the same array, so the kernels skip
+// the key tiles that no query of a 64-row block can see.  tiles: null, or a
+// device int to which the kernel adds the (64-query block, 64-key tile)
+// pairs it computed.  lse: null, or a contiguous (B, H, S) fp32
 // tensor that receives each row's log-sum-exp, the residual of the backward
 // (csrc/flash_attention_bwd.cu); o is the same with or without it.  Returns
 // the CUDA error of the launch (0 = launched).
@@ -598,6 +757,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.lse = (float*)lse;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16) return (int)(hd == 64 ? launch_bf16<64>(p, B, H, st) : launch_bf16<128>(p, B, H, st));
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  return (int)(hd == 64 ? launch_f32<64>(p, grid, st) : launch_f32<128>(p, grid, st));
+  return (int)(hd == 64 ? launch_f32<64>(p, B, H, st) : launch_f32<128>(p, B, H, st));
 }

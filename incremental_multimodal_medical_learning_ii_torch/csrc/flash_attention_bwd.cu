@@ -809,37 +809,6 @@ struct F32Tile {
                                     2 * kBlock * kLdP + 3 * kDkvStages * kBlock + kRows;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [r0, r0 + n) of an (S, HD) fp32 operand (row stride ``ld``) into
-// shared memory with row stride HD + 4; rows past S are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long ld, int r0, int n,
-                                          int S) {
-  constexpr int kChunks = HD / 4;
-  for (int i = threadIdx.x; i < n * kChunks; i += kF32Threads) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool in = r0 + r < S;
-    cp_async16(dst + r * (HD + 4) + c, src + (long long)(in ? r0 + r : 0) * ld + c, in);
-  }
-}
-
 // acc[i][j] = sum_d a[i][d] bm[tx + 16 j][d]: the thread's R rows of ``a``
 // (row stride HD + 4) against rows tx + 16 j of ``bm``, 4 columns of d a step
 template <int R, int HD>
@@ -1003,8 +972,8 @@ __global__ void __launch_bounds__(kF32Threads, 1) flash_bwd_dkv_f32_kernel(const
   };
   auto load_block = [&](int i, int st) {
     const int q0 = i * kBlock;
-    load_rows<HD>(sq + st * kBlock * kLd, qg, p.q_s, q0, kBlock, S);
-    load_rows<HD>(sdo + st * kBlock * kLd, dog, p.do_s, q0, kBlock, S);
+    load_rows<HD, kF32Threads>(sq + st * kBlock * kLd, qg, p.q_s, q0, kBlock, S);
+    load_rows<HD, kF32Threads>(sdo + st * kBlock * kLd, dog, p.do_s, q0, kBlock, S);
     if (tid < kBlock) {
       const bool in = q0 + tid < S;
       const int q = in ? q0 + tid : 0;
@@ -1014,8 +983,8 @@ __global__ void __launch_bounds__(kF32Threads, 1) flash_bwd_dkv_f32_kernel(const
     }
   };
 
-  load_rows<HD>(sk, kg, p.k_s, k0, F::kRows, S);
-  load_rows<HD>(sv, vg, p.v_s, k0, F::kRows, S);
+  load_rows<HD, kF32Threads>(sk, kg, p.k_s, k0, F::kRows, S);
+  load_rows<HD, kF32Threads>(sv, vg, p.v_s, k0, F::kRows, S);
   if (tid < F::kRows) ssegk[tid] = k0 + tid < S ? p.seg_kv[(long long)b * S + k0 + tid] : 0;
   int i = next_block(0);
   if (i < nb) load_block(i, 0);

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA and bulk copies, wgmma descriptors, fences and the bf16 shapes the
-// flash kernels use, and the host side of tensor maps and dynamic shared
-// memory.  Each kernel source includes this
-// header and is built on its own (ops/cuda_build.py hashes the header into
-// every library's name, so an edit here rebuilds them all).
+// flash kernels use, the fp32 flash kernels' cp.async loads of padded rows,
+// and the host side of tensor maps and dynamic shared memory.  Each kernel
+// source includes this header and is built on its own (ops/cuda_build.py
+// hashes the header into every library's name, so an edit here rebuilds
+// them all).
 
 #pragma once
 
@@ -187,6 +188,46 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: the fp32 kernels' loads from device memory into shared memory,
+// overlapping the math of the tile before
+// ---------------------------------------------------------------------------
+// 16 bytes (4 bytes) from ``src`` to ``dst``; zeros instead when ``valid``
+// is false (``src`` must still be a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + n) of an (S, HD) fp32 operand (row stride ``ld``) into
+// shared memory with row stride HD + 4, 16 bytes a copy, by the block's
+// THREADS threads; rows past S are zero-filled.  The padding keeps a
+// float4 read of 8 consecutive rows at one column free of bank conflicts.
+template <int HD, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long ld, int r0, int n,
+                                          int S) {
+  constexpr int kChunks = HD / 4;
+  for (int i = threadIdx.x; i < n * kChunks; i += THREADS) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool in = r0 + r < S;
+    cp_async16(dst + r * (HD + 4) + c, src + (long long)(in ? r0 + r : 0) * ld + c, in);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -11,18 +11,19 @@ of segment *s*; a masked logit gets ``-0.7 * FLT_MAX`` added, not
 ``-inf``.
 
 When q and kv carry one segment array (the same tensor, or one with the
-same pointer, shape and strides), the bf16 kernel skips the key tiles that
-no query of a 64-row block can see, exactly (:func:`key_tiles_needed` is
-its predicate).  A clone of the ids as ``segment_ids_kv`` turns the
-skipping off.  With ``computed_tiles`` the kernel also counts, on the
-card, the (query block, key tile) pairs it computed.
+same pointer, shape and strides), the kernel skips the key tiles that no
+query of a 64-row block can see, exactly, in bf16 and fp32 alike
+(:func:`key_tiles_needed` is its predicate).  A clone of the ids as
+``segment_ids_kv`` turns the skipping off.  With ``computed_tiles`` the
+kernel also counts, on the card, the (query block, key tile) pairs it
+computed.
 
 Gradients: when grad mode is on and q, k or v requires grad, the call goes
 through an autograd function whose forward also keeps each row's
 log-sum-exp (the kernel's ``lse`` output) and whose backward is
 :func:`flash_attention_bwd`, the CUDA kernel ``csrc/flash_attention_bwd.cu``
 (the library's dK/dV and dQ kernels) on the card, which skips the same
-pairs as the bf16 forward, in both types and both passes.  On the CPU the
+pairs as the forward, in both types and both passes.  On the CPU the
 same function runs the plain versions, :func:`mha_reference_with_lse` and
 :func:`flash_attention_bwd_reference`.  The backward differentiates once:
 a second order raises, as the library's ``NotImplementedError``.  Without
@@ -41,7 +42,7 @@ from incremental_multimodal_medical_learning_ii_torch.ops.cuda_build import curr
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the JAX kernel's DEFAULT_MASK_VALUE
 HEAD_DIMS = (64, 128)  # the head widths the kernel is built for
-BLOCK = 64  # the bf16 kernel's query block (one warpgroup) and key tile
+BLOCK = 64  # the kernels' query block (a warpgroup in bf16, half a CTA in fp32) and key tile
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                                           ctypes.c_void_p, ctypes.c_void_p,
                                                           ctypes.c_void_p]
@@ -142,12 +143,12 @@ def _block_ranges(seg: torch.Tensor):
 
 def key_tiles_needed(segment_ids_q: torch.Tensor, segment_ids_kv: torch.Tensor,
                      self_segments: bool) -> torch.Tensor:
-    """The bf16 kernel's skip predicate: (B, n, n) bool, n = ceil(S / 64),
-    True where it computes key tile j for query block i.  With
-    ``self_segments`` a tile is skipped when the [min, max] ranges of the
-    two blocks' segment ids (positions below S) are disjoint, so no query
-    of the block shares a segment with a key of the tile; otherwise every
-    tile is computed."""
+    """The kernels' skip predicate (K3 in both types, and both passes of
+    K3b): (B, n, n) bool, n = ceil(S / 64), True where key tile j is
+    computed for query block i.  With ``self_segments`` a tile is skipped
+    when the [min, max] ranges of the two blocks' segment ids (positions
+    below S) are disjoint, so no query of the block shares a segment with
+    a key of the tile; otherwise every tile is computed."""
     b, s = segment_ids_q.shape
     n = -(-s // BLOCK)
     if not self_segments:
@@ -264,17 +265,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On CUDA the output is a ``(B, S, nh, hd)`` buffer seen as
     ``(B, nh, S, hd)``, so a caller that merges the heads back gets a view.
     The kernel takes bf16 or fp32, hd 64 or 128, and any S >= 1 (q and kv of
-    one length).  ``computed_tiles``, for bf16 on CUDA only, is a one-element
-    int32 tensor on q's card to which the kernel adds the number of
-    (64-query block, 64-key tile) pairs it computed, summed over heads.
+    one length).  ``computed_tiles``, on CUDA only (bf16 or fp32), is a
+    one-element int32 tensor on q's card to which the kernel adds the
+    number of (64-query block, 64-key tile) pairs it computed, summed over
+    heads; on the CPU, where the plain version computes every pair, it is
+    refused.
     Under grad mode, when q, k or v requires grad, the result carries the
     backward (module docstring)."""
     tensors = (q, k, v, segment_ids_q, segment_ids_kv)
     if computed_tiles is not None and not (
-            q.device.type == "cuda" and q.dtype == torch.bfloat16
-            and computed_tiles.device == q.device and computed_tiles.dtype == torch.int32
-            and computed_tiles.numel() == 1):
-        raise ValueError("computed_tiles: the bf16 kernel on CUDA counts into a one-element "
+            q.device.type == "cuda" and computed_tiles.device == q.device
+            and computed_tiles.dtype == torch.int32 and computed_tiles.numel() == 1):
+        raise ValueError("computed_tiles: the kernel on CUDA counts into a one-element "
                          "int32 tensor on q's card")
     on_cpu = _check_devices("flash_attention", tensors)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

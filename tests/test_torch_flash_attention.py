@@ -1,9 +1,9 @@
 """Port ops/flash_attention.py: the plain version (mha_reference), which
 the CUDA kernel is held to on the card, against the JAX library's Pallas
 flash-attention kernel run in TPU interpret mode on the CPU; the CPU
-path's gradients against ``jax.grad`` through that kernel; and the bf16
-kernel's tile-skipping predicate, shown exact on a blocked emulation of
-its schedule."""
+path's gradients against ``jax.grad`` through that kernel; and the
+kernels' tile-skipping predicate, shown exact on an emulation of the fp32
+kernel's walk over the key tiles."""
 
 import numpy as np
 import pytest
@@ -99,60 +99,90 @@ def test_cpu_path_gradients_match_jax():
                       ours.grad.numpy(), np.asarray(theirs), ATOL)
 
 
-def _blocked_attention(q, k, v, seg_q, seg_kv, scale, needed=None):
-    """The bf16 kernel's schedule in fp32: 64-query blocks walk 64-key
-    tiles in order with an online softmax (running max m, sum l, deferred
-    normalisation); keys past S are -inf, a segment mismatch adds
-    MASK_VALUE.  ``needed`` (B, n, n) skips the tiles where it is False."""
-    b, h, s, _ = q.shape
-    out = torch.zeros_like(q)
-    for bi in range(b):
-        for i0 in range(0, s, BLOCK):
-            qi = q[bi, :, i0:i0 + BLOCK]
-            m = torch.full(qi.shape[:2] + (1,), -np.inf)
-            l = torch.zeros(qi.shape[:2] + (1,))
-            acc = torch.zeros_like(qi)
-            for j0 in range(0, s, BLOCK):
-                if needed is not None and not needed[bi, i0 // BLOCK, j0 // BLOCK]:
-                    continue
-                logits = qi @ k[bi, :, j0:j0 + BLOCK].transpose(-1, -2) * scale
-                same = seg_q[bi, i0:i0 + BLOCK, None] == seg_kv[bi, None, j0:j0 + BLOCK]
-                logits = logits + torch.where(same, 0.0, MASK_VALUE)
-                mx = torch.maximum(m, logits.amax(-1, keepdim=True))
-                alpha = torch.where(mx == m, 1.0, torch.exp(m - mx))
-                p = torch.exp(logits - mx)
-                l = l * alpha + p.sum(-1, keepdim=True)
-                acc = acc * alpha + p @ v[bi, :, j0:j0 + BLOCK]
-                m = mx
-            out[bi, :, i0:i0 + BLOCK] = acc / torch.where(l == 0, 1.0, l)
-    return out
+def _blocked_attention(q, k, v, seg_q, seg_kv, scale, self_segments):
+    """The fp32 kernel's walk, in fp32, batched over batch rows, heads and
+    query blocks: each 64-query block (half a CTA) visits the 64-key tiles
+    in order and computes those that ``key_tiles_needed`` keeps (every tile
+    with two id arrays; the CTA loads a tile that either half needs, which
+    changes no arithmetic).  A computed tile takes the kernel's steps: the
+    logit scaled, then the mask value added where the segments differ; keys
+    past S at -inf; the running max m, alpha = exp(m - mx) with no special
+    case, the row sum l = rowsum(p) + alpha * l, O = O * alpha + p v; the
+    normalisation deferred to the end, a row with l = 0 left at zero.  A
+    block that skips a tile keeps its m, l and O as they were."""
+    b, h, s, hd = q.shape
+    needed = key_tiles_needed(seg_q, seg_kv, self_segments)  # (B, n, n)
+    n = needed.shape[1]
+    pad = n * BLOCK - s
+
+    def blocks(x):  # (B, nh, S, hd) -> (B, nh, n, 64, hd), rows past S zero
+        return torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(b, h, n, BLOCK, hd)
+
+    qb, kb, vb = blocks(q), blocks(k), blocks(v)
+    sq = torch.nn.functional.pad(seg_q, (0, pad)).reshape(b, 1, n, BLOCK, 1)
+    sk = torch.nn.functional.pad(seg_kv, (0, pad)).reshape(b, n, BLOCK)
+    inside = (torch.arange(n * BLOCK) < s).reshape(n, BLOCK)
+    m = torch.full((b, h, n, BLOCK, 1), -np.inf)
+    l = torch.zeros((b, h, n, BLOCK, 1))
+    acc = torch.zeros_like(qb)
+    for j in range(n):
+        logits = (qb @ kb[:, :, j, None].transpose(-1, -2)) * scale  # (B, nh, n, 64, 64)
+        logits = logits + torch.where(sq == sk[:, None, None, j, None, :], 0.0, MASK_VALUE)
+        logits = torch.where(inside[j], logits, -np.inf)
+        mx = torch.maximum(m, logits.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        p = torch.exp(logits - mx)
+        keep = needed[:, None, :, j, None, None]  # (B, 1, n, 1, 1): the block computes tile j
+        l = torch.where(keep, p.sum(-1, keepdim=True) + alpha * l, l)
+        acc = torch.where(keep, acc * alpha + p @ vb[:, :, j, None], acc)
+        m = torch.where(keep, mx, m)
+    out = acc / torch.where(l == 0, 1.0, l)
+    return out.reshape(b, h, n * BLOCK, hd)[:, :, :s]
 
 
 @pytest.mark.parametrize("s,hd,lengths", [
     (512, 64, [1, 63, 64, 65, 300, 512]),  # every edge of a 64-row block
     (200, 64, [200, 1, 123]),              # a ragged last tile
     (512, 64, [512, 512]),                 # nothing to skip
-    (256, 128, [256, 200, 130, 17]),       # hd 128
+    (256, 128, [256, 200, 130, 17]),       # hd 128, also held to the Pallas kernel
+    (200, 64, [200, 150]),                 # lonely queries: two id arrays, nothing skipped
 ])
 def test_tile_skipping_is_exact(s, hd, lengths):
-    """Skipping the key tiles that key_tiles_needed rules out (self
-    segments: BERT's key-padding masks) changes no bit of a blocked online
-    softmax, and both agree with mha_reference (and the Pallas kernel
-    through it, test above)."""
+    """The fp32 kernel's walk skipping the key tiles that key_tiles_needed
+    rules out (one id array: BERT's key-padding masks) changes no bit of
+    its result against the same walk computing every tile, and both agree
+    with mha_reference (and, at hd 128, with the Pallas kernel in interpret
+    mode).  With two id arrays (queries whose segment no key shares: row 1
+    of kv is one id throughout) the walk skips nothing and each lonely
+    query averages every key, as the plain version says."""
     q, k, v, seg = _case(s + len(lengths), len(lengths), 2, s, hd, lengths)
     t = [torch.from_numpy(a) for a in (q, k, v)]
-    seg = torch.from_numpy(seg)
-    needed = key_tiles_needed(seg, seg, self_segments=True)
+    seg_q = torch.from_numpy(seg)
+    lonely = lengths == [200, 150]
+    seg_kv = seg_q.clone()
+    if lonely:
+        seg_kv[1] = 7
     scale = 1.0 / float(np.sqrt(hd))
-    skipping = _blocked_attention(*t, seg, seg, scale, needed)
-    dense = _blocked_attention(*t, seg, seg, scale)
-    assert torch.equal(skipping, dense)
-    assert_parity(f"blocked online softmax with skipping, S={s} hd={hd} {lengths} vs mha_reference",
-                  skipping.numpy(), mha_reference(*t, seg, seg, scale).numpy(), ATOL)
-    if lengths == [512, 512]:
-        assert bool(needed.all())
-    else:
-        assert not bool(needed.all())
+    every = _blocked_attention(*t, seg_q, seg_kv, scale, self_segments=False)
+    ref = mha_reference(*t, seg_q, seg_kv, scale).numpy()
+    assert_parity(f"fp32 kernel walk, S={s} hd={hd} {lengths} vs mha_reference",
+                  every.numpy(), ref, ATOL)
+    if lonely:
+        assert bool(key_tiles_needed(seg_q, seg_kv, self_segments=False).all())
+        np.testing.assert_allclose(every[1].numpy(), np.broadcast_to(v[1].mean(1, keepdims=True),
+                                                                     v[1].shape), atol=ATOL)
+        return
+    needed = key_tiles_needed(seg_q, seg_q, self_segments=True)
+    skipping = _blocked_attention(*t, seg_q, seg_q, scale, self_segments=True)
+    assert torch.equal(skipping, every)
+    assert bool(needed.all()) == (lengths == [512, 512])
+    if hd == 128:
+        with pltpu.force_tpu_interpret_mode():
+            lib = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       segment_ids=SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg)),
+                                       sm_scale=scale))
+        assert_parity(f"fp32 kernel walk with skipping, S={s} hd={hd} vs pallas flash (interpret)",
+                      skipping.numpy(), lib, ATOL)
 
 
 def test_key_tiles_needed_predicate():
@@ -182,14 +212,16 @@ def test_self_segments_detection():
     assert not _same_array(seg, seg.t())
 
 
-def test_computed_tiles_is_for_the_bf16_kernel_only():
-    """The tile count comes from the bf16 kernel on the card: on CPU
-    tensors, where the plain version computes every pair, the wrapper
-    refuses the counter instead of leaving it at zero."""
+def test_computed_tiles_is_counted_on_the_card_only():
+    """The tile count comes from the kernel on the card, in bf16 and fp32
+    alike: on CPU tensors, where the plain version computes every pair, the
+    wrapper refuses the counter in either type instead of leaving it at
+    zero."""
     q, k, v, seg = _case(5, 1, 2, 64, 64, [40])
     t = [torch.from_numpy(a) for a in (q, k, v, seg)]
-    with pytest.raises(ValueError, match="computed_tiles"):
-        flash_attention(t[0], t[1], t[2], t[3], t[3], 0.125,
-                        computed_tiles=torch.zeros(1, dtype=torch.int32))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="computed_tiles"):
+            flash_attention(*(x.to(dtype) for x in t[:3]), t[3], t[3], 0.125,
+                            computed_tiles=torch.zeros(1, dtype=torch.int32))
     np.testing.assert_array_equal(flash_attention(t[0], t[1], t[2], t[3], t[3], 0.125).numpy(),
                                   mha_reference(t[0], t[1], t[2], t[3], t[3], 0.125).numpy())

@@ -124,7 +124,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])
 def test_no_jax_import_in_source(target):
     files = (sorted(PORT.rglob("*.py")) if target == "package"
-             else [REPO / "chip_smoke.py", REPO / "k2_breakdown.py"])
+             else [REPO / "chip_smoke.py", REPO / "k2_breakdown.py", REPO / "k3_breakdown.py"])
     assert files and all(f.exists() for f in files)
     for f in files:
         bad = [r for r in _imported_roots(f) if r in FORBIDDEN]
