@@ -132,7 +132,18 @@ and without the final result line:
    time, TFLOP/s, each K3b kernel's ``ptxas -v`` line; (d) the profiling tools:
    ``zero_joint_bounds --trace-dir`` (its spans and K1's kernel in the
    trace), ``extract_embeddings(trace_dir=)``, ``device_encode_rate`` at
-   bench.py's shape with and without K2.
+   bench.py's shape with and without K2;
+18. the figures: (a) ``zero_joint_bounds`` joint at phase 12's scale with
+   ``--plot-figures reference --tsne-plots`` and with ``--plot-figures
+   off``, in turns, the fused loops under sync debug mode, with the walls,
+   the image events (640 x 480 RGB) and K1's launches (= phase 12's joint
+   run's; past ``FIGURE_CUT_AFTER_S`` seconds of script the runs take 2
+   epochs, said so); (b) the exact t-SNE on the card at the t-SNE subsets'
+   1,000 and 800 rows (CUDA events); (c) the card against its CPU on the
+   same inputs: heatmap, curve, PCA and prompt-cosine data (1e-6), the
+   t-SNE's KL (5%) and its 10 nearest neighbours (a share of 0.2 at
+   least); (d) ``ground --out``, ``dataset_stats --patterns-png`` and
+   ``analyze_prompts`` write decodable PNGs of the JAX figures' sizes.
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -3584,6 +3595,455 @@ def tools_phase(model, results) -> dict:
 
 
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# the figures: evaluation/plots.py, evaluation/projection.py, the hooks
+# ----------------------------------------------------------------------
+FIGURE_ATOL = 1e-6  # the card against its CPU: eval scores, heatmap, ROC / PR and PCA data
+# scores of one class closer than this on the card count as one score on
+# both devices (a pair that close may swap between devices, which moves a
+# curve point by a whole 1/n): 4x FIGURE_ATOL, so scores within their bar
+# keep the groups' order and a row the two devices put more than 2e-6
+# apart can reorder them
+FIGURE_TIE = 4e-6
+# eval predictions (pos > neg) the two devices may call differently: a
+# margin within fp32 noise of 0; a fault in the scorer flips a share of them
+FIGURE_PRED_FLIPS = 1e-4
+# t-SNE, the card against its CPU.  Its steps on the same P and start (5
+# of each stage) and its P from each device's own rows are held tightly;
+# whole runs, 1000 iterations of fp64 that part chaotically on two devices
+# and may end in different local minima, only by their KL and neighbours.
+# Each bar is read against three faults planted on the card alone
+# (TSNE_FAULTS), printed beside the sound run's readings.  On an H100 at
+# the subsets' 1,000 and 800 rows (PERF.md): sound P 6.4e-6 / 6.6e-6,
+# steps <= 1.3e-15, KL 4.6e-5 / 1.6e-2, 10-NN 0.98 / 0.68; planted P 1.3
+# (perplexity / 3), steps 0.44-1.8 (no exaggeration, half gradient). The
+# whole-run bars catch only perplexity / 3 (KL 7.7-8.5%): no exaggeration
+# and half gradient end within 1.5% in KL and share 0.65-0.89 of the
+# neighbours, so the step bars hold the arithmetic and the 10-NN floor
+# only a gross fault (chance: 1%; one CPU at 1 vs 4 threads shares 0.35)
+TSNE_STEPS = 5
+TSNE_STEP_RTOL = 1e-9  # of the largest |y| after the steps
+TSNE_P_RTOL = 1e-4  # of the largest P (fp32 cosine distances on each device)
+TSNE_KL_REL = 0.05
+TSNE_KNN_SHARE = 0.2
+TSNE_KNN = 10
+TSNE_FAULTS = ("no exaggeration", "half gradient", "perplexity / 3")
+FIGURE_CUT_AFTER_S = 800.0  # past this, 18a's runs go to 2 epochs
+
+
+def knn_share(a, b, k: int = TSNE_KNN) -> float:
+    """The mean share of each row's ``k`` nearest neighbours that two
+    embeddings of the same rows agree on."""
+    import torch
+
+    def nearest(y):
+        d = torch.cdist(y, y)
+        d.fill_diagonal_(float("inf"))
+        return d.topk(k, largest=False).indices
+
+    na, nb = nearest(a.double().cpu()), nearest(b.double().cpu())
+    return float(sum(len(set(x.tolist()) & set(y.tolist())) for x, y in zip(na, nb))
+                 / (k * len(na)))
+
+
+@contextlib.contextmanager
+def planted_tsne_fault(fault: str):
+    """One fault in ``evaluation/projection.py``'s arithmetic, on CUDA
+    tensors only (the CPU stays sound), undone on exit: the first stage's P
+    not exaggerated, the gradient halved, or the perplexity a third."""
+    from incremental_multimodal_medical_learning_ii_torch.evaluation import projection
+
+    name, sound = {
+        "no exaggeration": ("_descend", projection._descend),
+        "half gradient": ("kl_divergence_and_gradient", projection.kl_divergence_and_gradient),
+        "perplexity / 3": ("conditional_probabilities", projection.conditional_probabilities),
+    }[fault]
+
+    def faulty(first, *a):
+        if not first.is_cuda:
+            return sound(first, *a)
+        if fault == "no exaggeration":  # (y, p, it, ...): the stage from iteration 0
+            return sound(first, a[0] / projection.EARLY_EXAGGERATION if a[1] == 0 else a[0], *a[1:])
+        if fault == "half gradient":
+            kl, grad = sound(first, *a)
+            return kl, grad * 0.5
+        return sound(first, a[0] / 3)
+
+    setattr(projection, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(projection, name, sound)
+
+
+def tsne_readings(x, cpu) -> dict:
+    """The card's t-SNE of the rows ``x`` (on the card) against the CPU's
+    (``cpu``: ``projection.tsne(x.cpu())``): P from each device's rows;
+    TSNE_STEPS steps of each stage from the CPU's P and start on both; the
+    whole run's KL and shared neighbours."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.evaluation import projection
+
+    n = x.shape[0]
+    perplexity = projection.perplexity_for(n)
+    p_cpu = projection.joint_probabilities(x.cpu(), perplexity)
+    p_card = projection.joint_probabilities(x, perplexity)
+    out = dict(p_err=float((p_card.cpu() - p_cpu).abs().max() / p_cpu.abs().max()))
+    y0 = projection.pca_2d(x.cpu()).to(torch.float32)
+    y0 = (y0 / y0[:, 0].std(unbiased=False) * 1e-4).double()
+    lr = max(n / projection.EARLY_EXAGGERATION / 4, 50.0)
+    for stage, (p, it, momentum) in {
+        "exploration": (p_cpu * projection.EARLY_EXAGGERATION, 0, 0.5),
+        "convergence": (p_cpu, projection.EXPLORATION_ITERS + 1, 0.8),
+    }.items():
+        steps = [projection._descend(y, p.to(y.device), it, it + TSNE_STEPS, momentum, lr,
+                                     projection.N_ITER_WITHOUT_PROGRESS)[0].cpu()
+                 for y in (y0.cuda(), y0)]
+        out[f"{stage}_step_err"] = float((steps[0] - steps[1]).abs().max() / steps[1].abs().max())
+    run = projection.tsne(x)
+    out.update(finite=bool(torch.isfinite(run.embedding).all()) and run.embedding.shape == (n, 2),
+               kl=run.kl_divergence, n_iter=run.n_iter,
+               kl_rel=abs(run.kl_divergence - cpu.kl_divergence) / cpu.kl_divergence,
+               knn10_share=knn_share(run.embedding, cpu.embedding))
+    return out
+
+
+def tsne_failures(r: dict) -> list:
+    """The t-SNE bars a reading of :func:`tsne_readings` fails."""
+    return [name for name, bad in (
+        ("finite", not r["finite"]),
+        ("P", r["p_err"] > TSNE_P_RTOL),
+        ("exploration steps", r["exploration_step_err"] > TSNE_STEP_RTOL),
+        ("convergence steps", r["convergence_step_err"] > TSNE_STEP_RTOL),
+        ("KL", r["kl_rel"] > TSNE_KL_REL),
+        ("neighbours", r["knn10_share"] < TSNE_KNN_SHARE)) if bad]
+
+
+def tie_merged(card, cpu, tau: float = FIGURE_TIE):
+    """One class's scores from each device snapped to the card's tie
+    groups (the card's sorted scores split where a gap exceeds ``tau``):
+    each row takes its group's largest score on its own device.  Returns
+    both columns and the number of rows in groups of more than one."""
+    import numpy as np
+
+    order = np.argsort(card, kind="stable")
+    group = np.empty(len(card), np.int64)
+    group[order] = np.concatenate([[0], np.cumsum(np.diff(card[order]) > tau)])
+    snapped = []
+    for s in (card, cpu):
+        top = np.full(group.max() + 1, -np.inf)
+        np.maximum.at(top, group, s)
+        snapped.append(top[group])
+    return snapped[0], snapped[1], int((np.bincount(group)[group] > 1).sum())
+
+
+def eval_figure_data(records: list, trainer, test) -> dict:
+    """The test passes a figure run drew from (``records``: epoch, labels,
+    predictions, scores and the params of each), run again on the CPU with
+    the same params: the scores, the predictions, and the data of the ROC
+    and PR figures (every class, the last pass) and of the F1 and AUROC
+    heatmaps (every pass) from each device's outputs; scores closer than
+    FIGURE_TIE on the card are one score on both devices
+    (:func:`tie_merged`), and F1 cells whose rows' predictions differ are
+    counted, not compared."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.evaluation import plots
+    from incremental_multimodal_medical_learning_ii_torch.evaluation.metrics import (
+        per_class_metrics,
+    )
+
+    def curve_err(a, b):
+        if a.data["x"].shape != b.data["x"].shape:
+            return float("inf")
+        return float(max(np.abs(a.data["x"] - b.data["x"]).max(),
+                         np.abs(a.data["y"] - b.data["y"]).max()))
+
+    cpu = Trainer(trainer.cfg, trainer.bank.to("cpu"), device="cpu")
+    rows = {"card": {"f1": [], "auroc": []}, "cpu": {"f1": [], "auroc": []}}
+    score_err, flips, merged, flipped_cells = 0.0, 0, 0, np.zeros(0, bool)
+    errs = {}
+    for i, (epoch, y_true, y_pred, y_score, params) in enumerate(records):
+        cpu.state = cpu.state._replace(params={k: v.cpu() for k, v in params.items()})
+        t, pred, score = cpu._eval_pass(test, epoch, log_loss_prefix=None)
+        check(np.array_equal(t, y_true), "18c: the CPU's eval pass read other labels")
+        score_err = max(score_err, float(np.abs(score - y_score).max()))
+        flip = pred != y_pred
+        flips += int(flip.sum())
+        flipped_cells = np.concatenate([flipped_cells, flip.any(axis=0)])
+        snapped = [tie_merged(y_score[:, c], score[:, c]) for c in range(y_score.shape[1])]
+        merged += sum(m for _, _, m in snapped)
+        card_s, cpu_s = (np.stack([s[k] for s in snapped], axis=1) for k in (0, 1))
+        for device, (p, s) in (("card", (y_pred, card_s)), ("cpu", (pred, cpu_s))):
+            pc = per_class_metrics(y_true, p, s)
+            rows[device]["f1"].append(pc["f1"])
+            rows[device]["auroc"].append(pc["auroc"])
+        if i == len(records) - 1:
+            for fn in (plots.roc_curve_figure, plots.pr_curve_figure):
+                errs[fn.__name__] = max(curve_err(fn(y_true[:, c], card_s[:, c], c),
+                                                  fn(y_true[:, c], cpu_s[:, c], c))
+                                        for c in range(y_true.shape[1]))
+    labels = [str(e) for e, *_ in records]
+    cols = list(trainer.class_names)
+    for metric in ("f1", "auroc"):
+        card_m, cpu_m = (plots.heatmap_figure(np.stack(rows[d][metric]), labels, cols, metric,
+                                              metric.upper()).data["matrix"] for d in rows)
+        keep = ~flipped_cells.reshape(card_m.shape) if metric == "f1" else np.ones(card_m.shape, bool)
+        errs[f"heatmap {metric}"] = float(np.abs(card_m - cpu_m)[keep].max())
+    errs["eval scores"] = score_err
+    n_preds = sum(r[2].size for r in records)
+    return dict(errs=errs, passes=len(records), pred_flips=flips, pred_flip_share=flips / n_preds,
+                f1_cells_not_compared=int(flipped_cells.sum()), tied_rows=merged)
+
+
+def figures_phase(results, elapsed_s: float) -> dict:
+    """(18) The figures.  (a) ``zero_joint_bounds`` joint at phase 12's scale
+    with ``--plot-figures reference --tsne-plots`` and with ``--plot-figures
+    off``, in turns (figures, off, off, figures), the fused loops under sync
+    debug mode: walls, image events, K1's launches (= phase 12's joint
+    run's); (b) the t-SNE's time on the card at the 1,000 and 800 rows of
+    the t-SNE subsets (adapted by the run's parameters), CUDA events; (c)
+    the card against its CPU on the same inputs: the first figure run's test
+    passes run again on the CPU with each pass's params (scores,
+    predictions, the ROC / PR and heatmap data drawn from them), PCA, the
+    prompt cosine matrix from each device's adapted means, and the t-SNE
+    (:func:`tsne_readings`), sound and with each of TSNE_FAULTS planted on
+    the card; (d) ``ground --out``, ``dataset_stats --patterns-png`` and
+    ``analyze_prompts`` write decodable PNGs of the JAX figures' sizes."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from incremental_multimodal_medical_learning_ii_torch.cli import (
+        analyze_prompts,
+        dataset_stats,
+        ground,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.data.store import (
+        EmbeddingDataset,
+        filter_multiclass,
+        filter_sani_malati,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.engine import protocols
+    from incremental_multimodal_medical_learning_ii_torch.engine.steps import adapt_bank, apply_image
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.evaluation import plots, projection
+    from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import read_images
+    from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair
+    from incremental_multimodal_medical_learning_ii_torch.ops.cosine import masked_mean
+    from incremental_multimodal_medical_learning_ii_torch.text.bank import (
+        build_prompt_bank,
+        synthetic_encode_fn,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+        CHEXPERT_COMPETITION_TASKS,
+    )
+
+    out: dict = {"runs": {}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_figures_"))
+    epochs = 10 if elapsed_s < FIGURE_CUT_AFTER_S else 2
+    if epochs != 10:
+        log(f"  (a) cut to {epochs} epochs: {elapsed_s:.0f} s have passed (> {FIGURE_CUT_AFTER_S})")
+    out["epochs"] = epochs
+    joint_k1 = results["training"]["runs"]["joint"]["launches"]["fused_pairwise_cosine"]
+    calls: dict = {}
+    host_s: dict = {}
+    undo = guarded_loops(calls, host_s)
+    # where the figure run's time goes: host seconds in the t-SNE subsets'
+    # filters, in the figure functions (t-SNE on the card inside them,
+    # synchronised by its stop checks) and in the PNG encoding at commit
+    spent: dict = {}
+    timed = [(protocols.DataBundle, "with_tsne_subsets", "subsets"),
+             (projection, "tsne", "tsne"), (plots.Figure, "png", "png")]
+    timed += [(plots, n, "figures") for n in (
+        "heatmap_figure", "roc_curve_figure", "pr_curve_figure", "class_scatter_figure",
+        "prompt_cosine_heatmap_figure", "prompt_projection_figures", "embedding_tsne_figure")]
+    saved = [(owner, n, getattr(owner, n)) for owner, n, _ in timed]
+
+    def clocked(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        return run
+
+    records: list = []  # the first figure run's test passes (18c) and its trainer
+    records_of: list = []
+    evaluate = Trainer.evaluate_model
+
+    def recorded(self, y_true, y_pred, y_score, mode, epoch, val_test, *a, **k):
+        if val_test == "test":
+            records.append((epoch, y_true, y_pred, y_score,
+                            {n: v.detach().cpu().clone() for n, v in self.state.params.items()}))
+            records_of.append(self)
+        return evaluate(self, y_true, y_pred, y_score, mode, epoch, val_test, *a, **k)
+
+    try:
+        data_dir = training_data(tmp / "data")
+        flags = {"reference --tsne-plots": ["--plot-figures", "reference", "--tsne-plots"],
+                 "off": ["--plot-figures", "off"]}
+        walls: dict = {name: [] for name in flags}
+        params = None
+        # in turns, each order once: figures, off, off, figures
+        for turn, name in enumerate(["reference --tsne-plots", "off", "off", "reference --tsne-plots"]):
+            calls.clear()
+            spent.clear()
+            for (owner, n, key), (_, _, fn) in zip(timed, saved):
+                setattr(owner, n, clocked(fn, key))
+            if turn == 0:
+                Trainer.evaluate_model = recorded
+            log_dir = tmp / f"{turn}-{name.split()[0]}"
+            try:
+                r = run_driver("zero_joint_bounds", [*flags[name], "--epochs", str(epochs)], data_dir,
+                               log_dir, "cuda", host_s)
+            finally:
+                for owner, n, fn in saved:
+                    setattr(owner, n, fn)
+                Trainer.evaluate_model = evaluate
+            (events,) = sorted(log_dir.glob("**/events.out.tfevents.*"))
+            images = read_images(events)
+            k1 = r["launches"]["fused_pairwise_cosine"]
+            walls[name].append(r["wall_s"])
+            run = dict(wall_s=r["wall_s"], image_events=len(images), k1_launches=k1,
+                       guarded_loop_calls=dict(calls), host_s=dict(spent),
+                       image_sizes=sorted({(i["width"], i["height"]) for _, _, i in images}))
+            out["runs"][f"{turn} {name}"] = run
+            log(f"  (a) turn {turn}, joint {name}: {r['wall_s']:.2f} s, {len(images)} image events, "
+                f"K1 launches {k1} (phase 12's joint: {joint_k1 * epochs // 10}), guarded loop calls "
+                f"{json.dumps(calls)}, host s in the figure code {json.dumps(spent)}")
+            check(k1 == joint_k1 * epochs // 10, f"18a {name}: K1 launched {k1} times")
+            check(all(calls.get(n, 0) > 0 for n in ("build_fused_epoch", "build_fused_eval")),
+                  f"18a {name}: a fused loop ran unguarded: {calls}")
+            if name == "off":
+                check(not images, "18a: --plot-figures off wrote figures")
+            else:
+                check(len(images) > 0 and all(i["colorspace"] == 3 for _, _, i in images),
+                      "18a: no RGB figures")
+                check({(640, 480)} == set(run["image_sizes"]), f"18a: figure sizes {run['image_sizes']}")
+                if params is None:
+                    params = {k: v.cuda() for k, v in r["params"].items()}
+        ref, off = statistics.mean(walls["reference --tsne-plots"]), statistics.mean(walls["off"])
+        out.update(walls_s=walls, figure_wall_s=ref - off)
+        log(f"  (a) the figures cost {ref - off:.2f} s of the {ref:.2f} s run ({epochs} epochs; means "
+            f"of two turns: figures {walls['reference --tsne-plots']}, off {walls['off']})")
+
+        # (b) the t-SNE on the card, at the subsets' rows, adapted as in the run
+        pair = AdapterPair(kind="mlp", shared=False, use_image=True, use_text=True)
+        train = EmbeddingDataset.load(data_dir / "train.npz")
+        subsets = {"5x1000": filter_multiclass(train), "sani-malati": filter_sani_malati(train)}
+        adapted = {}
+        with torch.no_grad():
+            for kind, ds in subsets.items():
+                adapted[kind] = apply_image(pair, params, torch.from_numpy(ds.embeddings).cuda())
+        out["tsne"] = {}
+        for kind, x in adapted.items():
+            times, run = [], None
+            for _ in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                run = projection.tsne(x)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            # (c) the same rows through the CPU; then three faults planted on the card
+            t0 = time.perf_counter()
+            cpu = projection.tsne(x.cpu())
+            cpu_s = time.perf_counter() - t0
+            sound = tsne_readings(x, cpu)
+            faults = {}
+            for fault in TSNE_FAULTS:
+                with planted_tsne_fault(fault):
+                    faults[fault] = tsne_readings(x, cpu)
+                faults[fault]["fails"] = tsne_failures(faults[fault])
+            out["tsne"][kind] = dict(rows=int(x.shape[0]), ms=statistics.median(times), all_ms=times,
+                                     n_iter=run.n_iter, cpu_s=cpu_s, cpu_kl=cpu.kl_divergence,
+                                     sound=sound, planted=faults)
+            log(f"  (b) t-SNE {kind} ({x.shape[0]} rows): card {statistics.median(times):.1f} ms "
+                f"(CUDA events, median of 3: {[round(t, 1) for t in times]}), KL {run.kl_divergence:.5f}"
+                f" after {run.n_iter + 1} iterations; CPU {cpu_s:.2f} s, KL {cpu.kl_divergence:.5f}")
+            log(f"  (c) t-SNE {kind}, the card against its CPU (bars: P {TSNE_P_RTOL}, steps "
+                f"{TSNE_STEP_RTOL}, KL {TSNE_KL_REL}, 10-NN share >= {TSNE_KNN_SHARE}): sound "
+                f"{json.dumps(sound)}")
+            for fault, reading in faults.items():
+                log(f"  (c) t-SNE {kind}, planted on the card, {fault}: {json.dumps(reading)}")
+            check(not tsne_failures(sound), f"t-SNE {kind}: the card fails {tsne_failures(sound)}")
+            check(all(r["fails"] for r in faults.values()),
+                  f"t-SNE {kind}: a planted fault passes every bar: {faults}")
+
+        # (c) the rest of the figure data, the card against its CPU
+        errs = {}
+        for kind, x in adapted.items():
+            errs[f"pca {kind}"] = float((projection.pca_2d(x).cpu()
+                                         - projection.pca_2d(x.cpu())).abs().max())
+        bank = build_prompt_bank(synthetic_encode_fn(27), create_prompts(CHEXPERT_COMPETITION_TASKS),
+                                 CHEXPERT_COMPETITION_TASKS)
+        means = {}
+        for device in ("cuda", "cpu"):
+            with torch.no_grad():
+                b = adapt_bank(pair, {k: v.to(device) for k, v in params.items()}, bank.to(device))
+                means[device] = (masked_mean(b.pos, b.pos_count), masked_mean(b.neg, b.neg_count))
+        figs = {d: plots.prompt_cosine_heatmap_figure(*means[d], single_prompt=False)
+                for d in means}
+        errs["prompt cosine matrix"] = float(np.abs(figs["cuda"].data["matrix"]
+                                                    - figs["cpu"].data["matrix"]).max())
+        for d in means:
+            figs[d] = plots.prompt_projection_figures(*means[d])[0]
+        errs["prompt PCA"] = float(np.abs(figs["cuda"].data["coords"]
+                                          - figs["cpu"].data["coords"]).max())
+        evals = eval_figure_data(records, records_of[0], EmbeddingDataset.load(data_dir / "test.npz"))
+        errs.update(evals.pop("errs"))
+        out["card_vs_cpu"] = dict(errs=errs, **evals)
+        log(f"  (c) figure data, card against CPU (bar {FIGURE_ATOL}): {json.dumps(errs)}; the "
+            f"{evals['passes']} test passes of turn 0: {evals['pred_flips']} predictions called "
+            f"differently (share {evals['pred_flip_share']:.2e}, bar {FIGURE_PRED_FLIPS}; F1 cells "
+            f"not compared {evals['f1_cells_not_compared']}), {evals['tied_rows']} rows in tie "
+            f"groups of {FIGURE_TIE}")
+        check(evals["passes"] == epochs, f"18c: {evals['passes']} test passes recorded")
+        check(max(errs.values()) <= FIGURE_ATOL, f"18c: figure data differ: {errs}")
+        check(evals["pred_flip_share"] <= FIGURE_PRED_FLIPS, f"18c: predictions differ: {evals}")
+
+        # (d) the other entry points' PNGs
+        png = write_cxr_png(tmp / "cxr.png")
+        with contextlib.redirect_stdout(io.StringIO()):
+            ground.main(["--image", str(png), "--query", GROUND_QUERY, "--random-weights",
+                         *GROUND_FLAGS, "--out", str(tmp / "ground.png")])
+        csv_path = tmp / "labels.csv"
+        rng = np.random.default_rng(3)
+        lab = rng.choice(["0.0", "1.0", "-1.0"], size=(2000, 5), p=[0.6, 0.3, 0.1])
+        csv_path.write_text("\n".join([",".join(["Path", *CHEXPERT_COMPETITION_TASKS])]
+                                      + [",".join([f"p{i}/view1_frontal.jpg", *row])
+                                         for i, row in enumerate(lab)]) + "\n")
+        with contextlib.redirect_stdout(io.StringIO()):
+            dataset_stats.main(["--csv", str(csv_path), "--patterns-png",
+                                str(tmp / "patterns.png")])
+            prompt_pngs = analyze_prompts.main(["--out-dir", str(tmp / "prompts")])
+        sizes = {}
+        for path, want in ((tmp / "ground.png", (1500, 600)), (tmp / "patterns.png", (800, 600)),
+                           *((p, (960, 720)) for p in prompt_pngs)):
+            with Image.open(path) as im:
+                im.load()
+                sizes[path.name] = im.size
+                check(im.format == "PNG" and im.size == want, f"18d: {path.name} is {im.size}")
+        out["pngs"] = sizes
+        log(f"  (d) ground --out, dataset_stats --patterns-png, analyze_prompts: {json.dumps(sizes)}")
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["figures"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3713,6 +4173,10 @@ def main(argv=None) -> int:
     grads = text_tower_gradients(bert, ids, mask, results, args.profile)
     k3b = k3b_times(results)["bfloat16"]
     tools_phase(model, results)
+    phase("[18] the figures: the joint driver at phase 12's scale with and without figures "
+          "(loops under sync debug mode), the t-SNE on the card, the card against its CPU, the "
+          "PNG-writing entry points")
+    figures_phase(results, time.perf_counter() - t_start)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]

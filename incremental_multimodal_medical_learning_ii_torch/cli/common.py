@@ -9,10 +9,9 @@ than one runs the driver data-parallel on that many ranks, one process
 each (:func:`run_ranks`; NCCL on the card, one card a rank; gloo on the
 CPU), and only rank 0 prints and writes.  ``--trace-dir`` writes a
 ``torch.profiler`` trace of the training and eval loop
-(``utils/profiling.py``).  What is not ported yet raises "not yet ported"
-(:func:`check_unported`): figures and ``--tsne-plots`` (matplotlib is
-absent on the card's machine); the JAX package's compile cache has no
-counterpart.
+(``utils/profiling.py``).  ``--plot-figures`` and ``--tsne-plots`` draw the
+reference's figures into the event file (``evaluation/plots.py``, PIL);
+the JAX package's compile cache has no counterpart.
 """
 
 from __future__ import annotations
@@ -163,28 +162,18 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh-devices", type=int, default=0,
                    help="data-parallel ranks: 0 = every visible card (one process on the CPU), "
                    "1 = no mesh")
-    p.add_argument("--tsne-plots", action="store_true",
-                   help="t-SNE figures: not yet ported (matplotlib is absent on the card's machine)")
+    p.add_argument("--tsne-plots", action="store_true", help="enable t-SNE figure hooks")
     p.add_argument(
-        "--plot-figures", choices=["reference", "final", "off"], default="off",
-        help="TB figure cadence; only 'off' is ported: figures need matplotlib, which the "
-        "card's machine lacks, so the default is 'off' (the JAX CLI's is 'reference')",
+        "--plot-figures", choices=["reference", "final", "off"], default="reference",
+        help="TB figure cadence: 'reference' draws every figure every epoch/task like the "
+        "reference's Trainer (host cost every eval); 'final' only at the last epoch/task; "
+        "'off' skips figures. A --fused-unit joint run folds its epochs and evals into one "
+        "call under any cadence (each epoch's own parameters draw its figures)",
     )
     p.add_argument("--trace-dir",
                    help="write a torch.profiler trace of the training/eval loop (host ops, and "
                    "the card's kernels on CUDA) into this directory; Perfetto and TensorBoard's "
                    "PyTorch profiler plugin open it")
-
-
-def check_unported(args) -> None:
-    """Raise for a flag whose feature is not ported yet (the CLIs call this
-    before anything else)."""
-    from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import (
-        FIGURES_NOT_PORTED,
-    )
-
-    if args.plot_figures != "off" or args.tsne_plots:
-        raise NotImplementedError(FIGURES_NOT_PORTED)
 
 
 def mesh_size(args) -> int:
@@ -286,16 +275,18 @@ def load_bundle(args):
         rng = np.random.default_rng(args.seed)
         dirs = rng.normal(size=(5, 128)).astype(np.float32)
         dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-        return DataBundle(
+        bundle = DataBundle(
             train=synthetic_dataset(8192, seed=1, class_directions=dirs),
             val=synthetic_dataset(2048, seed=2, class_directions=dirs),
             test=synthetic_dataset(2048, seed=3, class_directions=dirs),
         )
-    if not args.data_dir:
-        raise SystemExit("--data-dir required (or use --synthetic)")
-    d = Path(args.data_dir)
-    return DataBundle(train=_load_split(d, "train"), val=_load_split(d, "val"),
-                      test=_load_split(d, "test"))
+    else:
+        if not args.data_dir:
+            raise SystemExit("--data-dir required (or use --synthetic)")
+        d = Path(args.data_dir)
+        bundle = DataBundle(train=_load_split(d, "train"), val=_load_split(d, "val"),
+                            test=_load_split(d, "test"))
+    return bundle.with_tsne_subsets() if args.tsne_plots else bundle
 
 
 def print_results(results) -> None:

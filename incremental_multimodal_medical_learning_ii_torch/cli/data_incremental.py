@@ -31,7 +31,6 @@ def main(argv=None) -> dict:
     p.add_argument("--adder", type=float, default=0.001)
     p.add_argument("--no-threshold-scheduling", action="store_true")
     args = p.parse_args(argv)
-    common.check_unported(args)
     ranks = common.run_ranks(main, argv, args)
     if ranks is not None:
         return ranks

@@ -1,32 +1,27 @@
 """Dataset label statistics: the reference's CSV analysis scripts
 (counterpart of the JAX package's ``cli/dataset_stats.py``).
 
-Covers ``CSV_reformatting/count_pos_neg_in_csv.py`` (per-pattern counts)
-and ``count_pos_neg_V2.py:50-51`` (the per-class pos/neg printout).  The
-``faq-patterns/*_patterns.png`` bar chart (``--patterns-png``) is not yet
-ported: figures need matplotlib, which the card's machine lacks.
+Covers ``CSV_reformatting/count_pos_neg_in_csv.py`` (per-pattern counts),
+``count_pos_neg_V2.py:50-51`` (the per-class pos/neg printout) and its
+``faq-patterns/*_patterns.png`` bar charts of pattern frequencies
+(``--patterns-png``, drawn by ``evaluation/plots.py``).
 
     python -m incremental_multimodal_medical_learning_ii_torch.cli.dataset_stats \\
-        --csv test_labels.csv
+        --csv test_labels.csv [--patterns-png faq-patterns/test_patterns.png] \\
+        [--title "Test Pattern Frequencies"]
 """
 
 from __future__ import annotations
 
 import argparse
 
-PLOT_NOT_PORTED = ("not yet ported: --patterns-png needs evaluation/plots.py (matplotlib, which "
-                   "the card's machine lacks; ROADMAP Queue 1, item 9)")
-
-
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--csv", required=True, help="CheXpert-format label CSV")
-    p.add_argument("--patterns-png", help="the pattern-frequency bar chart: not yet ported")
+    p.add_argument("--patterns-png", help="write the pattern-frequency bar chart here")
     p.add_argument("--title", default="Pattern Frequencies")
     args = p.parse_args(argv)
-    if args.patterns_png:
-        raise NotImplementedError(PLOT_NOT_PORTED)
 
     from incremental_multimodal_medical_learning_ii_torch.data.manifest import ChexpertManifest
 
@@ -44,6 +39,15 @@ def main(argv=None) -> None:
     print(f"{len(counts)} distinct patterns over {n} rows")
     for pat, cnt in sorted(counts.items(), key=lambda kv: -kv[1]):
         print(f"  {''.join(str(v) for v in pat)}  {cnt}  {cnt / n:.6f}")
+
+    if args.patterns_png:
+        from incremental_multimodal_medical_learning_ii_torch.evaluation.plots import (
+            label_pattern_frequency_figure,
+        )
+
+        label_pattern_frequency_figure(counts, m.label_names, title=args.title).save(
+            args.patterns_png)
+        print(f"wrote {args.patterns_png}")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ CLI surface over the VLP engine (``vlp/engine.py``, parity with the
 vendored ``ImageTextInferenceEngine``,
 ``health_multimodal/vlp/inference_engine.py:30-155``; the reference
 itself exposes this only as a library).  Runs on CUDA unless
-``--device cpu``.  The overlay figure (``--out``) is not yet ported:
-figures need matplotlib, which the card's machine lacks.  The JAX CLI's
+``--device cpu``.  ``--out`` writes the three-panel overlay figure as a
+PNG (``vlp/engine.py::plot_phrase_grounding_similarity_map``).  The JAX CLI's
 persistent compile cache has no counterpart here (eager PyTorch compiles
 nothing ahead; the CUDA kernels build once into ``_build/``).
 
@@ -14,7 +14,7 @@ nothing ahead; the CUDA kernels build once into ``_build/``).
         --image cxr.jpg --query "left pleural effusion" \\
         --biovil-checkpoint biovil.pt \\
         --cxr-bert-snapshot /weights/BiomedVLP-CXR-BERT-specialized \\
-        --save-map map.npy
+        --save-map map.npy --out grounding.png
 """
 
 from __future__ import annotations
@@ -22,8 +22,6 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-
-from incremental_multimodal_medical_learning_ii_torch.vlp.engine import FIGURE_NOT_PORTED
 
 
 class _SyntheticText:
@@ -57,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resize", type=int, default=512)
     p.add_argument("--crop", type=int, default=480,
                    help="default geometry matches the vendored engine factory")
-    p.add_argument("--out", help="the 3-panel overlay figure: not yet ported")
+    p.add_argument("--out", help="write the 3-panel overlay figure (PNG)")
     p.add_argument("--save-map", help="write the raw similarity map (npy)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu; nothing falls back")
     return p
@@ -94,8 +92,6 @@ def build_engine(args):
 def main(argv=None):
     """Prints the score and the map's summary; returns ``(score, map)``."""
     args = build_parser().parse_args(argv)
-    if args.out:
-        raise NotImplementedError(FIGURE_NOT_PORTED)
     engine = build_engine(args)
     score, sim_map = engine.get_score_and_map_from_raw_data(args.image, args.query)
     print(f"similarity score: {score:.4f}")
@@ -103,6 +99,13 @@ def main(argv=None):
     if args.save_map:
         np.save(args.save_map, sim_map)
         print(f"wrote {args.save_map}")
+    if args.out:
+        from incremental_multimodal_medical_learning_ii_torch.vlp.engine import (
+            plot_phrase_grounding_similarity_map,
+        )
+
+        plot_phrase_grounding_similarity_map(args.image, sim_map).save(args.out)
+        print(f"wrote {args.out}")
     return score, sim_map
 
 

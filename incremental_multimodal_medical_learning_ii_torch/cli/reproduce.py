@@ -28,8 +28,10 @@ gate misses its target by more than ``--tolerance``.
 ``--dry-run`` substitutes tiny learnable synthetic data and the synthetic
 prompt encoder and skips the assertions; ``--rehearsal`` runs the gates at
 the reference's data scale (191,027 train rows) on synthetic data, timing
-each gate.  Runs on CUDA unless ``--device cpu``.  Figures are not ported,
-so every gate runs with ``plot_figures="off"``.
+each gate.  Runs on CUDA unless ``--device cpu``.  Every gate draws the
+reference's figures at every eval, except the joint gate under
+``--fused-unit``, which draws them at its final epoch only (as the JAX CLI
+pins them).
 """
 
 from __future__ import annotations
@@ -65,7 +67,6 @@ def main(argv=None) -> dict:
                    help="reference-scale synthetic data (191,027 train rows, the real "
                    "batch/epoch counts) with assertions disabled: times each gate")
     args = p.parse_args(argv)
-    common.check_unported(args)
     ranks = common.run_ranks(main, argv, args)
     if ranks is not None:
         return ranks
@@ -79,7 +80,7 @@ def main(argv=None) -> dict:
         "shared": False, "train_logit_pos": False, "pred_logit_diff": False,
         "new_prompts": False, "change_labels": False, "xrays_position": "all",
         "no_image_adapter": False, "no_text_adapter": False, "no_shuffle": False,
-        "plot_figures": "off",
+        "plot_figures": "reference",
     }  # --seed is not pinned: gate configs and the rehearsal RNG honour it;
     # --fused-unit is honoured too
     ignored = [k for k, v in defaults.items() if getattr(args, k) != v]
@@ -172,7 +173,8 @@ def main(argv=None) -> dict:
         cfg = ExperimentConfig(
             mode="joint", epochs=epochs, batch_size=batch, lr=1e-3,
             optim="adam", adapter="mlp", prompt_mode="max", seed=args.seed,
-            fused_unit=args.fused_unit, plot_figures="off",
+            fused_unit=args.fused_unit,
+            plot_figures="final" if args.fused_unit else "reference",
         )
         res = run_zero_joint(cfg, bundle, bank, log_dir=args.log_dir, device=device,
                              trace_dir=args.trace_dir, mesh=mesh)

@@ -45,7 +45,6 @@ def main(argv=None) -> list:
                    "training randomness); the prompt bank stays built from --seed so the "
                    "task itself is fixed across the axis")
     args = p.parse_args(argv)
-    common.check_unported(args)
 
     from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
     from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig

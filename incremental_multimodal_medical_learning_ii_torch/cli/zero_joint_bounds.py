@@ -26,7 +26,6 @@ def main(argv=None) -> dict:
     common.add_common_args(p)
     p.add_argument("--folder-name", default="zero-and-joint")
     args = p.parse_args(argv)
-    common.check_unported(args)
     ranks = common.run_ranks(main, argv, args)
     if ranks is not None:
         return ranks

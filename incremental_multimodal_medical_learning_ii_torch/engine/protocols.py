@@ -29,6 +29,8 @@ from typing import Dict, Optional
 
 from incremental_multimodal_medical_learning_ii_torch.data.store import (
     EmbeddingDataset,
+    filter_multiclass,
+    filter_sani_malati,
     split_by_label,
     split_contiguous,
 )
@@ -52,12 +54,26 @@ from incremental_multimodal_medical_learning_ii_torch.utils.profiling import may
 
 @dataclasses.dataclass
 class DataBundle:
-    """The train / val / test embeddings of a run (the JAX bundle's t-SNE
-    subsets feed figures only, which are not ported)."""
+    """The train / val / test embeddings of a run, and optionally the
+    train set's two t-SNE subsets."""
 
     train: EmbeddingDataset
     val: EmbeddingDataset
     test: EmbeddingDataset
+    tsne_multiclass: Optional[EmbeddingDataset] = None
+    tsne_sani_malati: Optional[EmbeddingDataset] = None
+
+    def with_tsne_subsets(self) -> "DataBundle":
+        """The t-SNE subsets the reference extracts from the train set
+        (Trainer.py:249-250)."""
+        return dataclasses.replace(self, tsne_multiclass=filter_multiclass(self.train),
+                                   tsne_sani_malati=filter_sani_malati(self.train))
+
+    @property
+    def tsne_datasets(self):
+        if self.tsne_multiclass is None or self.tsne_sani_malati is None:
+            return None
+        return (self.tsne_multiclass, self.tsne_sani_malati)
 
 
 def _make_writer(cfg: ExperimentConfig, log_dir: Optional[str]) -> TBWriter:
@@ -171,12 +187,14 @@ def run_zero_joint(
                         trainer.train(data.train, epoch, threshold=threshold, actual_task=epoch)
                     results[f"val_ep{epoch}"] = trainer.validate(data.val, epoch, cfg.epochs,
                                                                  mode="joint")
-                    results[f"test_ep{epoch}"] = trainer.test(data.test, epoch, cfg.epochs,
-                                                              mode="joint")
+                    results[f"test_ep{epoch}"] = trainer.test(
+                        data.test, epoch, cfg.epochs, mode="joint",
+                        tsne_datasets=data.tsne_datasets)
                     writer.commit()
             else:
                 results["val_zero"] = trainer.validate(data.val, 0, 0, mode="zero")
-                results["test_zero"] = trainer.test(data.test, 0, 0, mode="zero")
+                results["test_zero"] = trainer.test(data.test, 0, 0, mode="zero",
+                                                    tsne_datasets=data.tsne_datasets)
     except BaseException:
         writer.discard()
         raise
@@ -267,7 +285,8 @@ def run_data_incremental(
                 results[f"val_part{part}"] = trainer.validate(
                     data.val, part, cfg.parts, mode="data-inc", tasks_order=part)
                 results[f"test_part{part}"] = trainer.test(
-                    data.test, part, cfg.parts, mode="data-inc", tasks_order=part)
+                    data.test, part, cfg.parts, mode="data-inc", tasks_order=part,
+                    tsne_datasets=data.tsne_datasets)
                 _save_unit(trainer, writer, part)
             _save_final(trainer, writer)
     except BaseException:
@@ -364,7 +383,7 @@ def run_class_incremental(
                     final_unit=n_tasks)
                 results[f"test_task{actual_task}"] = trainer.test(
                     data.test, actual_task, cfg.epochs, mode=cfg.mode, tasks_order=tasks_order,
-                    final_unit=n_tasks)
+                    tsne_datasets=data.tsne_datasets, final_unit=n_tasks)
                 _save_unit(trainer, writer, actual_task, extra={"last_batch": last_batch})
             _save_final(trainer, writer)
     except BaseException:

@@ -32,8 +32,15 @@ gather their scores before any metric, so every rank computes the same
 metrics.  Events are written by rank 0 only (the protocols give the other
 ranks' writers ``rank``).
 
-Not ported here: figures (matplotlib is absent on the card's machine: a
-configuration that asks for them raises).
+Figures (``cfg.plot_figures``, ``Trainer.py:1074-1554``): the ROC, PR and
+class-metric figures of every eval, the epoch x class / task x class
+heatmaps at the run's last epoch or task, the prompt embeddings' cosine
+heatmap, PCA and t-SNE and (``tsne_datasets``) the image embeddings'
+t-SNE after each test eval, with the JAX trainer's tags, steps and order,
+drawn by ``evaluation/plots.py`` (PIL; the projections on the trainer's
+device).  The folded paths restore each epoch's or unit's own state
+before its evals, so their figures are the per-epoch path's.  They are
+drawn only for a writer that writes (``TBWriter.writes``: rank 0).
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ from incremental_multimodal_medical_learning_ii_torch.data.store import (
     num_batches,
 )
 from incremental_multimodal_medical_learning_ii_torch.engine.steps import (
+    adapt_bank,
+    build_embed_fn,
     build_epoch_reset,
     build_eval_step,
     build_fused_epoch,
@@ -63,16 +72,15 @@ from incremental_multimodal_medical_learning_ii_torch.engine.steps import (
     params_from_modules,
     unstack,
 )
+from incremental_multimodal_medical_learning_ii_torch.evaluation import plots
 from incremental_multimodal_medical_learning_ii_torch.evaluation.metrics import (
     compute_metrics,
     per_class_metrics,
 )
-from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import (
-    FIGURES_NOT_PORTED,
-    TBWriter,
-)
+from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import TBWriter
 from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair
 from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import PromptBank
+from incremental_multimodal_medical_learning_ii_torch.ops.cosine import masked_mean
 from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import replicate
 from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     NUM_CLASSES,
@@ -110,8 +118,6 @@ class Trainer:
         device=None,
         mesh=None,
     ):
-        if cfg.plot_figures != "off":
-            raise NotImplementedError(FIGURES_NOT_PORTED)
         self.cfg = cfg
         self.mesh = mesh
         if mesh is not None and device is not None and resolve_device(device) != mesh.device:
@@ -130,6 +136,7 @@ class Trainer:
         self.state = init_train_state(params_from_modules(modules, self.device), cfg, self.device)
         self._train_step = build_train_step(self.pair, cfg, mesh) if cfg.trains_anything else None
         self._eval_step = build_eval_step(self.pair, cfg, mesh)
+        self._embed = build_embed_fn(self.pair, cfg)
         self._epoch_reset = build_epoch_reset(cfg)
         self.bank = bank.to(self.device)
         if mesh is not None:
@@ -838,6 +845,48 @@ class Trainer:
             y_score.append(scores[valid])
         return np.concatenate(y_true), np.concatenate(y_pred), np.concatenate(y_score)
 
+    def _emit_heatmaps_if_due(self, val_test, mode, epoch, epochs, tasks_order,
+                              f1_rows, auroc_rows, final_unit=None):
+        """Epoch x class (joint/data-inc) and task x class (class-inc)
+        forgetting heatmaps (Trainer.py:944-984).  The reference hardcodes
+        the class-incremental milestone at task 5 (Trainer.py:965);
+        ``final_unit`` makes it follow the run's task count."""
+        if epoch == epochs and mode in ("joint", "zero", "data-inc"):
+            # only the rows accumulated (fewer after a mid-run resume)
+            rows = [str(i) for i in range(epochs - len(f1_rows) + 1, epochs + 1)]
+            cols = self.class_names
+            tag = f"{val_test}/joint train/"
+        elif (epoch == (final_unit if final_unit is not None else 5)
+              and mode in ("class-pos-neg", "class-pos")):
+            order = list(tasks_order or range(NUM_CLASSES))
+            unit = final_unit if final_unit is not None else 5
+            # row i is the eval after task i (class order[i-1]); only the
+            # first `unit` classes are trained, and a resume keeps the
+            # trailing rows: the tail of the first `unit` trained classes
+            rows = [self.class_names[i] for i in order][:unit][-len(f1_rows):]
+            cols = [self.class_names[i] for i in order]
+            tag = f"{val_test}/{mode} incremental/"
+        else:
+            return
+        f1_map = np.stack(f1_rows)
+        auroc_map = np.stack(auroc_rows)
+        self.writer.add_figure(tag + "F1 score Heatmap",
+                               plots.heatmap_figure(f1_map, rows, cols, "F1 score", "F1"))
+        self.writer.add_figure(tag + "AUROC score Heatmap",
+                               plots.heatmap_figure(auroc_map, rows, cols, "AUROC score", "AUROC"))
+
+    def _plot_now(self, mode, epoch, epochs, final_unit) -> bool:
+        """The figure cadence: every eval ("reference") or the last epoch,
+        part or task ("final"; class-incremental evals carry the task in
+        ``epoch`` and its milestone is the last task)."""
+        last = final_unit if (
+            final_unit is not None and mode in ("class-pos-neg", "class-pos")
+        ) else epochs
+        return (
+            self.cfg.plot_figures == "reference"
+            or (self.cfg.plot_figures == "final" and epoch == last)
+        ) and self.writer.writes
+
     def evaluate_model(self, y_true, y_pred, y_score, mode, epoch, val_test, epochs, tasks_order,
                        final_unit=None):
         metrics = compute_metrics(y_true, y_pred, y_score)
@@ -848,13 +897,27 @@ class Trainer:
         w.add_scalar(f"{val_test}/AUROC-macro", metrics["auroc_macro"], epoch)
         w.add_scalar(f"{val_test}/AUROC-weighted", metrics["auroc_weighted"], epoch)
         pc = per_class_metrics(y_true, y_pred, y_score)
-        # the heatmap rows (drawn in slice 8) stay in the aux state
+        if self._plot_now(mode, epoch, epochs, final_unit):
+            for i in range(y_true.shape[1]):
+                w.add_figure(f"{val_test} ROC Curve/Curve for Class {i}",
+                             plots.roc_curve_figure(y_true[:, i], y_score[:, i], i), epoch)
+                w.add_figure(f"{val_test} Precision-Recall Curve/Curve for Class {i}",
+                             plots.pr_curve_figure(y_true[:, i], y_score[:, i], i), epoch)
+            for name, key in (("Accuracy", "accuracy"), ("Precision", "precision"),
+                              ("Recall", "recall")):
+                w.add_figure(f"{val_test} Class-metric/Class {name}",
+                             plots.class_scatter_figure(pc[key], name), epoch)
         if val_test == "val":
             self.val_f1_rows.append(pc["f1"])
             self.val_auroc_rows.append(pc["auroc"])
+            rows = (self.val_f1_rows, self.val_auroc_rows)
         else:
             self.test_f1_rows.append(pc["f1"])
             self.test_auroc_rows.append(pc["auroc"])
+            rows = (self.test_f1_rows, self.test_auroc_rows)
+        if self.cfg.plot_figures != "off" and self.writer.writes:
+            self._emit_heatmaps_if_due(val_test, mode, epoch, epochs, tasks_order, *rows,
+                                       final_unit=final_unit)
         return metrics
 
     def quick_auroc(self, dataset: EmbeddingDataset) -> np.ndarray:
@@ -879,7 +942,45 @@ class Trainer:
         return self.evaluate_model(y_true, y_pred, y_score, mode, epoch, "val",
                                    epochs, tasks_order, final_unit=final_unit)
 
-    def test(self, dataset, epoch, epochs, mode="joint", tasks_order=None, final_unit=None):
+    def test(self, dataset, epoch, epochs, mode="joint", tasks_order=None,
+             tsne_datasets: Optional[Sequence[EmbeddingDataset]] = None, final_unit=None):
         y_true, y_pred, y_score = self._eval_pass(dataset, epoch, log_loss_prefix=None)
-        return self.evaluate_model(y_true, y_pred, y_score, mode, epoch, "test", epochs,
-                                   tasks_order, final_unit=final_unit)
+        metrics = self.evaluate_model(y_true, y_pred, y_score, mode, epoch, "test", epochs,
+                                      tasks_order, final_unit=final_unit)
+        if self._plot_now(mode, epoch, epochs, final_unit):
+            self._plot_text_embedding_figures(epoch)
+            if tsne_datasets is not None:
+                self._plot_image_tsne(tsne_datasets, epoch)
+        return metrics
+
+    # ------------------------------------------------------------------
+    # Analysis plots (Trainer.py:1074-1554)
+    # ------------------------------------------------------------------
+    def adapted_mean_prompt_embeddings(self):
+        """(C, D) pos / neg adapted mean prompt embeddings on the trainer's
+        device (the 'to_plot' path of bert_forward_mean: the mean even in
+        MAX mode)."""
+        with torch.no_grad():
+            bank = adapt_bank(self.pair, self.state.params, self.bank)
+            return masked_mean(bank.pos, bank.pos_count), masked_mean(bank.neg, bank.neg_count)
+
+    def _plot_text_embedding_figures(self, epoch: int) -> None:
+        pos, neg = self.adapted_mean_prompt_embeddings()
+        fig = plots.prompt_cosine_heatmap_figure(pos, neg if self.cfg.train_logit_diff else None,
+                                                 self.cfg.single_prompt)
+        self.writer.add_figure("visual-embeddings/cosine-similarity Heatmap text-embs", fig, epoch)
+        pca_fig, tsne_fig = plots.prompt_projection_figures(pos, neg, seed=self.cfg.seed)
+        self.writer.add_figure("visual-embeddings/PCA text-embs", pca_fig, epoch)
+        self.writer.add_figure("visual-embeddings/t-SNE text-embs", tsne_fig, epoch)
+
+    def _plot_image_tsne(self, tsne_datasets: Sequence[EmbeddingDataset], epoch: int) -> None:
+        multiclass, sani_malati = tsne_datasets
+        for ds, kind, tag in (
+            (sani_malati, "sani-malati", "tsne-chexpert/t-SNE sani-malati"),
+            (multiclass, "multiclass", "tsne-chexpert/t-SNE 5x1000"),
+        ):
+            if len(ds) == 0:
+                continue
+            adapted = self._embed(self.state.params, self._up(ds.embeddings))
+            fig = plots.embedding_tsne_figure(adapted, ds.labels, kind, seed=self.cfg.seed)
+            self.writer.add_figure(tag, fig, epoch)

@@ -10,7 +10,11 @@ positive); ROC AUC macro, weighted (by positive count) and per class, by
 the trapezoid over sklearn's ROC curve (ties as one step, collinear points
 dropped), NaN for a class with one label value; precision and recall
 weighted and per class with 0 for an empty denominator.  The TB metric
-scalars come from here.
+scalars come from here.  The figures' curve points are sklearn's too:
+:func:`roc_curve` (``drop_intermediate=True``, the leading ``(0, 0, inf)``
+point), :func:`precision_recall_curve` (the closing ``(1, 0)`` point) and
+:func:`average_precision_score`, over :func:`binary_clf_curve`'s distinct
+scores in descending order.
 
 The device half, :func:`auroc_device`, :func:`f1_device` and
 :func:`subset_accuracy_device`, computes in torch on whatever device the
@@ -33,26 +37,62 @@ _trapezoid = getattr(np, "trapezoid", None) or np.trapz
 # ----------------------------------------------------------------------
 # Host half (numpy; the sklearn metric set)
 # ----------------------------------------------------------------------
-def _binary_roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
-    """``roc_auc_score`` of one binary column: NaN if only one label value
-    is present."""
-    y_true = np.asarray(y_true) == 1
-    if len(np.unique(y_true)) != 2:
-        return float("nan")
-    y_score = np.asarray(y_score)
+def binary_clf_curve(y_true: np.ndarray, y_score: np.ndarray):
+    """sklearn's ``confusion_matrix_at_thresholds`` of one binary column
+    (positive label 1): the false and true positive counts (float64) at
+    each distinct score, scores in descending order, and those scores."""
+    y_true = (np.ravel(y_true) == 1).astype(np.float64)
+    y_score = np.ravel(y_score)
     order = np.argsort(y_score, kind="stable")[::-1]
     y_score, y_true = y_score[order], y_true[order]
-    distinct = np.nonzero(np.diff(y_score))[0]
-    idx = np.concatenate([distinct, [y_true.size - 1]])
-    tps = np.cumsum(y_true.astype(np.float64))[idx]
+    idx = np.concatenate([np.nonzero(np.diff(y_score))[0], [y_true.size - 1]])
+    tps = np.cumsum(y_true)[idx]
     fps = 1 + idx.astype(np.float64) - tps
+    return fps, tps, y_score[idx]
+
+
+def roc_curve(y_true: np.ndarray, y_score: np.ndarray):
+    """``sklearn.metrics.roc_curve(drop_intermediate=True)``: (fpr, tpr,
+    thresholds); NaN rates where a column has no negative (fpr) or no
+    positive (tpr)."""
+    fps, tps, thresholds = binary_clf_curve(y_true, y_score)
     if fps.shape[0] > 2:  # drop points collinear with their neighbours
         keep = np.where(np.concatenate(
             [[True], np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), [True]]))[0]
-        fps, tps = fps[keep], tps[keep]
+        fps, tps, thresholds = fps[keep], tps[keep], thresholds[keep]
     tps = np.concatenate([[0.0], tps])
     fps = np.concatenate([[0.0], fps])
-    return float(_trapezoid(tps / tps[-1], fps / fps[-1]))
+    thresholds = np.concatenate([[np.inf], thresholds.astype(np.float64)])
+    fpr = np.full(fps.shape, np.nan) if fps[-1] <= 0 else fps / fps[-1]
+    tpr = np.full(tps.shape, np.nan) if tps[-1] <= 0 else tps / tps[-1]
+    return fpr, tpr, thresholds
+
+
+def precision_recall_curve(y_true: np.ndarray, y_score: np.ndarray):
+    """``sklearn.metrics.precision_recall_curve``: (precision, recall,
+    thresholds), recall decreasing, ending at precision 1, recall 0."""
+    fps, tps, thresholds = binary_clf_curve(y_true, y_score)
+    ps = tps + fps
+    precision = np.where(ps != 0, tps / np.where(ps != 0, ps, 1.0), 0.0)
+    recall = np.ones(tps.shape) if tps[-1] == 0 else tps / tps[-1]
+    return (np.concatenate([precision[::-1], [1.0]]), np.concatenate([recall[::-1], [0.0]]),
+            thresholds[::-1])
+
+
+def average_precision_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """``sklearn.metrics.average_precision_score`` of one binary column:
+    the step sum of precision over the recall increments."""
+    precision, recall, _ = precision_recall_curve(y_true, y_score)
+    return float(max(0.0, -np.sum(np.diff(recall) * precision[:-1])))
+
+
+def _binary_roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """``roc_auc_score`` of one binary column: the trapezoid under
+    :func:`roc_curve`; NaN if only one label value is present."""
+    if len(np.unique(np.asarray(y_true) == 1)) != 2:
+        return float("nan")
+    fpr, tpr, _ = roc_curve(y_true, y_score)
+    return float(_trapezoid(tpr, fpr))
 
 
 def _counts(y_true: np.ndarray, y_pred: np.ndarray):

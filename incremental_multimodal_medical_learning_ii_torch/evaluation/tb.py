@@ -1,15 +1,18 @@
-"""TensorBoard scalars with the reference's tag schema (counterpart of the
+"""TensorBoard events with the reference's tag schema (counterpart of the
 JAX package's ``evaluation/tb.py``), written without ``tensorboard``.
 
 The card's machine has no ``tensorboard`` package, so the writer encodes
 the event file itself: TFRecord framing (u64 length, masked CRC32C of the
 length, payload, masked CRC32C of the payload) around hand-encoded
 ``Event`` protobufs (``wall_time`` 1, ``step`` 2, ``file_version`` 3 =
-``"brain.Event:2"``, ``summary`` 5 -> ``value {tag 1, simple_value 2}``).
-Scalars only: figures need matplotlib, absent on that machine.  The file
-lands at ``<log_dir>/events.out.tfevents.<time>.<host>.<pid>.<n>``, as
-``torch.utils.tensorboard.SummaryWriter`` names it, and TensorBoard reads
-it.
+``"brain.Event:2"``, ``summary`` 5 -> ``value {tag 1, simple_value 2 |
+image 4}``).  A figure (``evaluation/plots.py``) is an image value as
+``torch.utils.tensorboard.SummaryWriter.add_figure`` writes one:
+``Summary.Image {height 1, width 2, colorspace 3 (RGB), encoded_image_string
+4 (PNG)}``.  The file lands at
+``<log_dir>/events.out.tfevents.<time>.<host>.<pid>.<n>``, as
+``SummaryWriter`` names it, and TensorBoard reads it; :func:`read_scalars`
+and :func:`read_images` read it back.
 
 Events are buffered and reach the file only on :meth:`TBWriter.commit`
 (the protocols commit at every unit boundary and on close);
@@ -30,10 +33,6 @@ import struct
 import time
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
-
-FIGURES_NOT_PORTED = ("not yet ported: figures need matplotlib, absent on the card's "
-                      "machine (ROADMAP slice 8)")
-
 
 def _crc32c_table() -> List[int]:
     table = []
@@ -77,9 +76,15 @@ def _field(number: int, payload: bytes) -> bytes:
     return _varint(number << 3 | 2) + _varint(len(payload)) + payload
 
 
+def _int_field(number: int, value: int) -> bytes:
+    return _varint(number << 3) + _varint(value)
+
+
 def encode_event(wall_time: float, step: int = 0, file_version: Optional[str] = None,
-                 scalar: Optional[Tuple[str, float]] = None) -> bytes:
-    """One ``tensorflow.Event`` protobuf message."""
+                 scalar: Optional[Tuple[str, float]] = None,
+                 image: Optional[Tuple[str, int, int, int, bytes]] = None) -> bytes:
+    """One ``tensorflow.Event`` protobuf message; ``image`` is (tag,
+    height, width, colorspace, encoded PNG)."""
     msg = b"\x09" + struct.pack("<d", wall_time)
     if step:
         msg += b"\x10" + _varint(step)
@@ -89,6 +94,11 @@ def encode_event(wall_time: float, step: int = 0, file_version: Optional[str] = 
         tag, value = scalar
         v = _field(1, tag.encode()) + b"\x15" + struct.pack("<f", value)
         msg += _field(5, _field(1, v))
+    if image is not None:
+        tag, height, width, colorspace, png = image
+        img = (_int_field(1, height) + _int_field(2, width) + _int_field(3, colorspace)
+               + _field(4, png))
+        msg += _field(5, _field(1, _field(1, tag.encode()) + _field(4, img)))
     return msg
 
 
@@ -129,11 +139,11 @@ def _fields(buf: bytes) -> Iterator[Tuple[int, object]]:
         yield number, value
 
 
-def read_scalars(path) -> List[Tuple[str, int, float]]:
-    """(tag, step, value) of every scalar event in one event file, in file
-    order; the records' checksums are verified."""
+def _summary_values(path) -> Iterator[Tuple[int, dict]]:
+    """(step, {field number: value}) of every summary value in one event
+    file, in file order; the records' checksums are verified."""
     data = Path(path).read_bytes()
-    out, i = [], 0
+    i = 0
     while i < len(data):
         header = data[i:i + 8]
         (n,) = struct.unpack("<Q", header)
@@ -149,10 +159,25 @@ def read_scalars(path) -> List[Tuple[str, int, float]]:
                 step = value - (1 << 64) if value >= 1 << 63 else value
             elif number == 5:
                 for _, v in _fields(value):
-                    fields = dict(_fields(v))
-                    if 2 in fields:
-                        out.append((fields[1].decode(), step,
-                                    struct.unpack("<f", fields[2])[0]))
+                    yield step, dict(_fields(v))
+
+
+def read_scalars(path) -> List[Tuple[str, int, float]]:
+    """(tag, step, value) of every scalar event in one event file, in file
+    order; the records' checksums are verified."""
+    return [(f[1].decode(), step, struct.unpack("<f", f[2])[0])
+            for step, f in _summary_values(path) if 2 in f]
+
+
+def read_images(path) -> List[Tuple[str, int, dict]]:
+    """(tag, step, {height, width, colorspace, png}) of every image event in
+    one event file, in file order."""
+    out = []
+    for step, f in _summary_values(path):
+        if 4 in f:
+            img = dict(_fields(f[4]))
+            out.append((f[1].decode(), step, dict(height=img.get(1, 0), width=img.get(2, 0),
+                                                  colorspace=img.get(3, 0), png=img.get(4, b""))))
     return out
 
 
@@ -163,18 +188,25 @@ class TBWriter:
         self.log_dir = log_dir
         self.rank = 0
         self._file = None
-        self._pending: List[Tuple[str, float, int]] = []
+        self._pending: List[Tuple[str, str, object, int]] = []
 
     @property
     def enabled(self) -> bool:
         return self.log_dir is not None
 
+    @property
+    def writes(self) -> bool:
+        """Whether events given to this writer reach a file (enabled, rank 0)."""
+        return self.enabled and self.rank == 0
+
     def add_scalar(self, tag: str, value, step: int) -> None:
-        if self.enabled and self.rank == 0:
-            self._pending.append((tag, float(value), int(step)))
+        if self.writes:
+            self._pending.append(("scalar", tag, float(value), int(step)))
 
     def add_figure(self, tag: str, figure, step: int = 0) -> None:
-        raise NotImplementedError(FIGURES_NOT_PORTED)
+        """Buffer an ``evaluation/plots.py`` figure as an RGB PNG image event."""
+        if self.writes:
+            self._pending.append(("figure", tag, figure, int(step)))
 
     def _open(self):
         Path(self.log_dir).mkdir(parents=True, exist_ok=True)
@@ -188,14 +220,19 @@ class TBWriter:
 
     def commit(self) -> None:
         """Write every buffered event to the event file and flush."""
-        if not self.enabled or self.rank > 0:
+        if not self.writes:
             return
         if self._file is None:
             self._file = self._open()
         # pop as written: a retried commit must not write an event twice
         while self._pending:
-            tag, value, step = self._pending[0]
-            self._file.write(record(encode_event(time.time(), step, scalar=(tag, value))))
+            kind, tag, payload, step = self._pending[0]
+            if kind == "scalar":
+                event = encode_event(time.time(), step, scalar=(tag, payload))
+            else:
+                width, height = payload.size
+                event = encode_event(time.time(), step, image=(tag, height, width, 3, payload.png()))
+            self._file.write(record(event))
             self._pending.pop(0)
         self._file.flush()
 

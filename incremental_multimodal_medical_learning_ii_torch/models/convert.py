@@ -275,6 +275,14 @@ def convert_resnet18_state_dict(sd: Mapping, prefix: str = "") -> ResNet18:
     return model.eval()
 
 
+def convert_resnet50_state_dict(sd: Mapping, prefix: str = "") -> ResNet50:
+    """A torchvision ResNet-50 state dict, optionally under ``prefix`` ->
+    :class:`ResNet50`."""
+    model = ResNet50(in_channels=sd[prefix + "conv1.weight"].shape[1])
+    _load_trunk(model, sd, prefix)
+    return model.eval()
+
+
 def convert_biovil_image_state_dict(sd: Mapping) -> BioViLImageModel:
     """The reference ``ImageModel`` state dict (ResNet-50 trunk under
     ``encoder.encoder.``, projector under ``projector.model.{0,1,3}``)."""
@@ -283,8 +291,7 @@ def convert_biovil_image_state_dict(sd: Mapping) -> BioViLImageModel:
         raise ValueError("not a ResNet-50 BioViL checkpoint (BioViL image checkpoints exist "
                          "with a ResNet-50 trunk only)")
     with torch.no_grad():
-        model = BioViLImageModel(ResNet50(in_channels=sd[p + "conv1.weight"].shape[1]))
-        _load_trunk(model.encoder, sd, p)
+        model = BioViLImageModel(convert_resnet50_state_dict(sd, p))
         proj = model.projector
         _conv(proj.conv1, sd, "projector.model.0.weight")
         _bn(proj.bn, sd, "projector.model.1")

@@ -131,6 +131,25 @@ class DevicePreprocessPlan:
         self._matrix_cache_bytes += pair[0].nbytes + pair[1].nbytes
         return pair
 
+    def prepare(self, images: Sequence[np.ndarray]):
+        """images: list of (H, W) uint8 -> ``(raw (B,P,P) u8, w_h
+        (B,crop,P), w_w (B,crop,P))``, one matrix pair per image, the
+        operands of :func:`preprocess_device`.  CenterCrop is fused into the
+        matrices (rows outside the crop are left out), so the device output
+        is (B, crop, crop) straight away."""
+        b = len(images)
+        p = self.pad_to
+        raw = np.zeros((b, p, p), np.uint8)
+        w_h = np.zeros((b, self.crop, p), np.float32)
+        w_w = np.zeros((b, self.crop, p), np.float32)
+        for i, img in enumerate(images):
+            h, w = img.shape
+            if h > p or w > p:
+                raise ValueError(f"image {i} ({h}x{w}) exceeds pad_to={p}")
+            raw[i, :h, :w] = img
+            w_h[i], w_w[i] = self._matrices(h, w)
+        return raw, w_h, w_w
+
     def prepare_deduped(self, images: Sequence[np.ndarray]):
         """images: list of (H, W) uint8 -> ``(raw (B,P,P) u8, uniq_w_h
         (U,crop,P), uniq_w_w (U,crop,P), idx (B,) i32)``: one matrix pair

@@ -53,6 +53,13 @@ def apply_uint8_rounding(out: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(out), 0.0, 255.0)
 
 
+def matmul_resize(
+    img: torch.Tensor, w_h: torch.Tensor, w_w: torch.Tensor, round_uint8: bool = True
+) -> torch.Tensor:
+    """(H, W) x (outH, H) x (outW, W) -> (outH, outW) float32, one image."""
+    return batched_matmul_resize(img[None], w_h[None], w_w[None], round_uint8)[0]
+
+
 def batched_matmul_resize(
     imgs: torch.Tensor, w_h: torch.Tensor, w_w: torch.Tensor, round_uint8: bool = True
 ) -> torch.Tensor:

@@ -7,8 +7,6 @@ fields, their normalisation and checks in ``__post_init__`` and
 character for character, so a run of the port logs under the same
 directory name as the same run of the JAX package.  The JAX fields that
 only steer a TPU (``compute_dtype``, ``data_axis``) have no counterpart.
-``plot_figures`` defaults to ``"off"``: figures need matplotlib, which the
-card's machine lacks, and a Trainer asked for them raises.
 """
 
 from __future__ import annotations
@@ -121,8 +119,10 @@ class ExperimentConfig:
     fused_unit: bool = False
     # reshuffle the train rows every epoch (padding rows stay at the tail)
     shuffle_train: bool = True
-    # figure cadence: "reference" | "final" | "off"; only "off" is ported
-    plot_figures: str = "off"
+    # figure cadence: "reference" draws the ROC/PR/scatter/t-SNE/heatmap
+    # figures at every eval, as the reference does; "final" only at the last
+    # epoch/part/task; "off" logs scalars only
+    plot_figures: str = "reference"
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "adapter", AdapterKind(self.adapter))

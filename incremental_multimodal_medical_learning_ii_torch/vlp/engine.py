@@ -14,7 +14,9 @@ Capability parity with ``health_multimodal/vlp/inference_engine.py``:
 
 The similarity and the smoothing run on the model's device; the geometric
 re-mapping is host numpy (a per-image visualisation, not a training
-tensor).
+tensor).  :func:`plot_phrase_grounding_similarity_map` draws the vendored
+three-panel figure with PIL (``evaluation/plots.py``), its isolines by
+marching squares (:func:`isolines`).
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-FIGURE_NOT_PORTED = ("not yet ported: the phrase-grounding figure needs matplotlib, which the "
-                     "card's machine lacks (ROADMAP Queue 1, item 9)")
+ISOLINE_LEVELS = (0.25, 0.5, 0.75, 1.0)  # np.linspace(0.25, 1, 4)
 
 
 def _gaussian_kernel_1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
@@ -179,7 +180,108 @@ def _interpolate(grid: np.ndarray, size: Tuple[int, int], mode: str) -> np.ndarr
     raise ValueError(f"unsupported interpolation {mode!r}")
 
 
+def isolines(z: np.ndarray, level: float) -> np.ndarray:
+    """Marching squares: the (k, 4) segments ``(x0, y0, x1, y1)`` (column,
+    row coordinates of ``z``) where ``z`` crosses ``level``, linear along
+    each cell edge; a cell with a NaN corner draws nothing, and a saddle
+    cell is split by its centre's side of the level."""
+    z = np.asarray(z, np.float64)
+    a, b = z[:-1, :-1], z[:-1, 1:]  # top-left, top-right
+    d, c = z[1:, :-1], z[1:, 1:]  # bottom-left, bottom-right
+    ok = np.isfinite(a) & np.isfinite(b) & np.isfinite(c) & np.isfinite(d)
+    rows, cols = np.meshgrid(np.arange(a.shape[0], dtype=np.float64),
+                             np.arange(a.shape[1], dtype=np.float64), indexing="ij")
+
+    def cross(p, q):  # fraction along the edge p -> q where z meets the level
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return np.clip((level - p) / (q - p), 0.0, 1.0)
+
+    # the crossing point on each edge: top, right, bottom, left
+    points = [
+        (cols + cross(a, b), rows),
+        (cols + 1.0, rows + cross(b, c)),
+        (cols + cross(d, c), rows + 1.0),
+        (cols, rows + cross(a, d)),
+    ]
+    above = [p >= level for p in (a, b, c, d)]
+    crossed = [above[0] != above[1], above[1] != above[2], above[3] != above[2],
+               above[0] != above[3]]
+    n_crossed = sum(e.astype(np.int8) for e in crossed)
+    segments = []
+
+    def add(mask, e0, e1):
+        if mask.any():
+            segments.append(np.stack([points[e0][0][mask], points[e0][1][mask],
+                                      points[e1][0][mask], points[e1][1][mask]], axis=1))
+
+    two = ok & (n_crossed == 2)
+    for e0 in range(4):
+        for e1 in range(e0 + 1, 4):
+            add(two & crossed[e0] & crossed[e1], e0, e1)
+    saddle = ok & (n_crossed == 4)
+    centre_like_a = ((a + b + c + d) / 4.0 >= level) == above[0]
+    add(saddle & centre_like_a, 0, 1)  # b and d cut off alone
+    add(saddle & centre_like_a, 2, 3)
+    add(saddle & ~centre_like_a, 0, 3)  # a and c cut off alone
+    add(saddle & ~centre_like_a, 1, 2)
+    return np.concatenate(segments) if segments else np.zeros((0, 4))
+
+
 def plot_phrase_grounding_similarity_map(image_path, similarity_map: np.ndarray):
-    """The three-panel figure (input, isolines, heatmap overlay): not yet
-    ported."""
-    raise NotImplementedError(FIGURE_NOT_PORTED)
+    """Three-panel figure on a 1500x600 canvas: the input image in grey,
+    the isolines at 0.25, 0.5, 0.75 and 1.0 coloured by RdBu_r over
+    [-1, 1] with their levels written beside them, and the map over the
+    image at alpha 0.5 (NaN transparent) with a colour bar, as the
+    vendored visualisation draws them (``common/visualization.py:36-120``).
+    A flat or empty map draws no isolines.  Returns an
+    ``evaluation.plots.Figure``."""
+    from PIL import Image
+
+    from incremental_multimodal_medical_learning_ii_torch.data.images import load_image
+    from incremental_multimodal_medical_learning_ii_torch.evaluation.plots import (
+        Canvas,
+        Figure,
+        colormap,
+    )
+
+    img = np.asarray(load_image(image_path), np.float64)
+    sim = np.asarray(similarity_map, np.float64)
+    lo, hi = float(img.min()), float(img.max())
+    grey = np.round((img - lo) / (hi - lo if hi > lo else 1.0) * 255.0).astype(np.uint8)
+    cv = Canvas(1500, 600)
+    h, w = grey.shape
+    scale = min(380.0 / w, 480.0 / h)
+    pw, ph = max(1, round(w * scale)), max(1, round(h * scale))
+    base = Image.fromarray(grey, "L").convert("RGB").resize((pw, ph), Image.BILINEAR)
+    finite = np.isfinite(sim)
+    lines = {}
+    for k, title in enumerate(("Input image", "Similarity isolines", "Similarity heatmap")):
+        x0 = round(75 + k * 480 + (380 - pw) / 2)
+        y0 = round(60 + (480 - ph) / 2)
+        panel = base.copy()
+        if k == 2:
+            rgba = np.zeros(sim.shape + (4,), np.uint8)
+            rgba[..., :3] = colormap("RdBu_r", sim, -1.0, 1.0)
+            rgba[..., 3] = np.where(finite, 128, 0)
+            overlay = Image.fromarray(rgba, "RGBA").resize((pw, ph), Image.NEAREST)
+            panel = Image.alpha_composite(panel.convert("RGBA"), overlay).convert("RGB")
+        cv.image.paste(panel, (x0, y0))
+        cv.title((x0 + pw / 2, y0 - 6), title)
+        if k == 1:
+            sx, sy = pw / sim.shape[1], ph / sim.shape[0]
+            for level in ISOLINE_LEVELS:
+                segs = isolines(sim, level)
+                lines[level] = segs
+                if not len(segs):
+                    continue
+                color = tuple(int(v) for v in colormap("RdBu_r", level, -1.0, 1.0))
+                for xa, ya, xb, yb in segs:
+                    cv.draw.line([(x0 + (xa + 0.5) * sx, y0 + (ya + 0.5) * sy),
+                                  (x0 + (xb + 0.5) * sx, y0 + (yb + 0.5) * sy)], fill=color, width=2)
+                xa, ya, xb, yb = segs[len(segs) // 2]
+                cv.text((x0 + ((xa + xb) / 2 + 0.5) * sx, y0 + ((ya + yb) / 2 + 0.5) * sy),
+                        f"{level:.2f}", color=color)
+        if k == 2:
+            cv.colorbar((x0 + pw + 14, y0, x0 + pw + 28, y0 + ph), "RdBu_r", -1.0, 1.0)
+    return Figure("grounding", dict(image=grey, similarity_map=sim, levels=ISOLINE_LEVELS,
+                                    isolines=lines, vmin=-1.0, vmax=1.0, alpha=0.5), cv.image)

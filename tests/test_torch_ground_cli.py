@@ -2,7 +2,7 @@
 JAX package's CLIs on the CPU: the same ``--biovil-npz`` bundle and the
 same small ``--cxr-bert-checkpoint`` + vocab give the same printed score
 and ``--save-map`` array; the same CSV gives the same printout; the
-plotting flags raise "not yet ported"."""
+plotting flags write decodable PNGs of the JAX figures' canvas sizes."""
 
 import re
 
@@ -80,9 +80,10 @@ def test_ground_cli_refuses(weight_files, monkeypatch):
     d = weight_files
     base = ["--image", str(d / "cxr.png"), "--query", "edema", "--biovil-npz",
             str(d / "biovil.npz"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_ground.main([*base, "--random-weights", "--out", str(d / "fig.png")])
-    assert not (d / "fig.png").exists()
+    # --out is ported: the three-panel figure on its 1500 x 600 canvas
+    t_ground.main([*base, "--random-weights", "--out", str(d / "fig.png")])
+    with Image.open(d / "fig.png") as fig:
+        assert fig.format == "PNG" and fig.size == (1500, 600) and fig.mode == "RGB"
     with pytest.raises(SystemExit, match="cxr-bert"):
         t_ground.main(base)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -115,6 +116,22 @@ def test_dataset_stats_cli_matches_jax(label_csv, tmp_path, capsys):
         main(["--csv", str(empty)])
     jout, tout = capsys.readouterr().out.splitlines()
     assert jout == tout == "0 rows — nothing to report"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_stats.main(["--csv", str(label_csv), "--patterns-png", str(tmp_path / "p.png")])
-    assert not (tmp_path / "p.png").exists()
+    # --patterns-png is ported: the JAX chart's bars and labels, 800 x 600
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from incremental_multimodal_medical_learning_ii_tpu.evaluation import plots as jplots
+    from incremental_multimodal_medical_learning_ii_tpu.data.manifest import ChexpertManifest
+    from incremental_multimodal_medical_learning_ii_torch.evaluation import plots as tplots
+
+    t_stats.main(["--csv", str(label_csv), "--patterns-png", str(tmp_path / "p.png"),
+                  "--title", "Test Pattern Frequencies"])
+    assert "wrote" in capsys.readouterr().out
+    with Image.open(tmp_path / "p.png") as png:
+        assert png.format == "PNG" and png.size == (800, 600)
+    m = ChexpertManifest.from_csv(str(label_csv))
+    ref = jplots.label_pattern_frequency_figure(m.label_pattern_counts(), m.label_names)
+    ours = tplots.label_pattern_frequency_figure(m.label_pattern_counts(), m.label_names)
+    ax = ref.axes[0]
+    assert ours.data["labels"] == [t.get_text() for t in ax.get_xticklabels()]
+    np.testing.assert_array_equal(ours.data["heights"], [b.get_height() for b in ax.patches])

@@ -38,6 +38,8 @@ MESH_MODULES = ("parallel", "parallel.mesh")
 # encodes with the dry run over ranks
 SWEEP_TEXT_PARALLEL_MODULES = ("engine.sweep", "cli.sweep", "ops.ring_attention", "parallel.tp",
                                "parallel.sp", "parallel.pp", "multichip")
+# the figures: PIL drawing, the sklearn curve points, PCA and t-SNE in torch
+FIGURE_MODULES = ("evaluation.plots", "evaluation.projection", "cli.analyze_prompts")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -64,7 +66,7 @@ def test_import_all_submodules_loads_no_jax():
     port = "incremental_multimodal_medical_learning_ii_torch."
     assert all(port + m in loaded
                for m in TRAINING_MODULES + EXTRACTION_MODULES + GROUNDING_MODULES + MESH_MODULES
-               + SWEEP_TEXT_PARALLEL_MODULES)
+               + SWEEP_TEXT_PARALLEL_MODULES + FIGURE_MODULES)
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -188,19 +190,32 @@ def test_extraction_entry_points_refuse_without_cuda(monkeypatch, tmp_path, entr
 @pytest.mark.parametrize("driver", ["zero_joint_bounds", "data_incremental", "class_incremental"])
 def test_drivers_refuse_without_cuda_and_refuse_what_is_not_ported(monkeypatch, tmp_path, driver):
     """The drivers ask for CUDA unless ``--device cpu``, for their ranks too
-    (``--mesh-devices 2`` starts none on the CPU when CUDA is absent);
-    figures and ``--tsne-plots`` raise "not yet ported" (before any data is
-    read); ``--trace-dir`` writes a trace of the run."""
+    (``--mesh-devices 2`` starts none on the CPU when CUDA is absent).
+    Nothing of theirs is left unported: ``--plot-figures final`` writes the
+    figures into the event file, ``--tsne-plots`` hands the train set's
+    t-SNE subsets to the protocol, and ``--trace-dir`` writes a trace of
+    the run."""
     import importlib
 
-    main = importlib.import_module(
-        f"incremental_multimodal_medical_learning_ii_torch.cli.{driver}").main
+    from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import read_images
+
+    cli = importlib.import_module(f"incremental_multimodal_medical_learning_ii_torch.cli.{driver}")
+    main = cli.main
     base = ["--synthetic", "--epochs", "1", "--log-dir", str(tmp_path)]
-    for flags in (["--plot-figures", "final"], ["--tsne-plots"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            main([*base, *flags, "--device", "cpu"])
-    main([*base, "--trace-dir", str(tmp_path / "trace"), "--device", "cpu"])
+    main([*base, "--plot-figures", "final", "--trace-dir", str(tmp_path / "trace"),
+          "--device", "cpu", "--log-dir", str(tmp_path / "f")])
     assert trace_spans(tmp_path / "trace")["eval-pass"] >= 2
+    (events,) = (tmp_path / "f").rglob("events.out.tfevents.*")
+    tags = {tag for tag, _, _ in read_images(events)}
+    assert "test ROC Curve/Curve for Class 0" in tags
+    assert "visual-embeddings/t-SNE text-embs" in tags
+    bundles = []
+    runner = "run_zero_joint" if driver == "zero_joint_bounds" else f"run_{driver}"
+    monkeypatch.setattr(cli, runner, lambda cfg, data, *a, **k: bundles.append(data) or {})
+    main([*base, "--tsne-plots", "--device", "cpu"])
+    ((multiclass, sani_malati),) = [b.tsne_datasets for b in bundles]
+    assert len(multiclass) > 0 and len(sani_malati) > 0
+    monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for flags in ([], ["--mesh-devices", "2"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -213,8 +228,8 @@ def test_drivers_refuse_without_cuda_and_refuse_what_is_not_ported(monkeypatch, 
                       torch.ones(5, dtype=torch.int32), torch.ones(5, dtype=torch.int32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(ExperimentConfig(), bank)
-    with pytest.raises(NotImplementedError, match="figures need matplotlib"):
-        Trainer(ExperimentConfig(plot_figures="reference"), bank, device="cpu")
+    assert ExperimentConfig().plot_figures == "reference"  # the JAX package's default
+    assert Trainer(ExperimentConfig(plot_figures="reference"), bank, device="cpu").cfg.plot_figures
 
 
 def test_grounding_engines_refuse_without_cuda(monkeypatch):

@@ -1,6 +1,11 @@
 """The port's cli/reproduce.py against the JAX package's: ``--dry-run`` on
 the CPU with the JAX adapter init and the same epoch orders injected into
-both; every gate's AUROC within 1e-4 (the drivers' metric bar)."""
+both; every gate's AUROC within 1e-4 (the drivers' metric bar), and every
+gate's event file holds the JAX gate's figures (tags, steps, image sizes):
+both pin the same figure cadence."""
+
+import glob
+import os
 
 import jax
 import numpy as np
@@ -13,6 +18,7 @@ from incremental_multimodal_medical_learning_ii_tpu.models.adapters import Adapt
 from incremental_multimodal_medical_learning_ii_torch.cli import reproduce as t_repro
 from incremental_multimodal_medical_learning_ii_torch.convert import params_from_jax
 from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer as TTrainer
+from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import read_images
 from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair as TPair
 
 from torch_port_helpers import one_torch_thread, to_numpy_tree, trace_spans  # noqa: F401
@@ -56,8 +62,17 @@ def injected(monkeypatch):
     return captured
 
 
+def _figures(log_dir):
+    """{run dir: [(tag, step, height, width, colorspace), ...]} of a log dir."""
+    out = {}
+    for f in sorted(glob.glob(str(log_dir / "**" / "events.out.tfevents.*"), recursive=True)):
+        run = os.path.relpath(os.path.dirname(f), log_dir)
+        out.setdefault(run, []).extend((tag, step, im["height"], im["width"], im["colorspace"])
+                                       for tag, step, im in read_images(f))
+    return out
+
+
 def test_dry_run_matches_jax(tmp_path, injected, capsys):
-    # the JAX gates write figures by default; the port has none (off)
     j_repro.main(["--dry-run", "--log-dir", str(tmp_path / "jax"), "--mesh-devices", "1"])
     zero, joint, cls = injected
     ref = {
@@ -78,15 +93,22 @@ def test_dry_run_matches_jax(tmp_path, injected, capsys):
         line = next(ln for ln in out.splitlines() if ln.startswith(f"{gate}: "))
         assert f"= {got:.4f} (reference " in line and "[wall " in line
     np.testing.assert_allclose(ours["class-inc"]["curve"], ref_curve, atol=AUROC_ATOL, rtol=0)
+    ref_figs, our_figs = _figures(tmp_path / "jax"), _figures(tmp_path / "port")
+    assert sorted(our_figs) == sorted(ref_figs) and len(ref_figs) == 3
+    for run, figs in ref_figs.items():
+        assert len(figs) > 0 and our_figs[run] == figs, run
 
 
-def test_unported_flags_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_repro.main(["--dry-run", "--device", "cpu", "--log-dir", str(tmp_path),
-                      "--plot-figures", "final"])
-    # --trace-dir is ported: the zero-shot gate's eval passes are spans of its trace
+def test_unported_flags_raise(tmp_path, monkeypatch, capsys):
+    """No flag is left unported: ``--plot-figures`` is pinned as the JAX CLI
+    pins it (a warning names the ignored override; the zero-shot gate still
+    draws its figures), and ``--trace-dir`` traces the gates."""
     t_repro.main(["--dry-run", "--device", "cpu", "--log-dir", str(tmp_path), "--gates",
-                  "zero-shot", "--trace-dir", str(tmp_path / "trace")])
+                  "zero-shot", "--plot-figures", "off", "--trace-dir", str(tmp_path / "trace")])
+    assert "ignoring overridden flag(s): plot_figures" in capsys.readouterr().out
+    assert any("test ROC Curve/Curve for Class 0" == f[0] for figs in _figures(tmp_path).values()
+               for f in figs)
+    # the zero-shot gate's eval passes are spans of its trace
     assert trace_spans(tmp_path / "trace")["eval-pass"] == 2
     # --mesh-devices is ported: more ranks than cards raise as the JAX CLI does
     import torch

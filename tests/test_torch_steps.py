@@ -252,7 +252,7 @@ def _run(runner, cfg_kwargs, monkeypatch, states):
     monkeypatch.setattr(protocols, "_save_unit",
                         lambda trainer, writer, completed, extra=None:
                         states.append({k: v.clone() for k, v in trainer.state.params.items()}))
-    cfg = ExperimentConfig(**cfg_kwargs)
+    cfg = ExperimentConfig(plot_figures="off", **cfg_kwargs)
     results = runner(cfg, _bundle(), _bank(), log_dir=None, device="cpu")
     return rec.scalars, results["trainer"]
 

@@ -271,9 +271,9 @@ def test_cli_matches_jax_cli(monkeypatch, capsys, jax_init, case):
     assert ("[warn] --vmap unavailable" in port_out) == jax_vmap
 
 
-def test_trace_dir_is_not_ported(tmp_path):
-    """``--trace-dir`` was not ported before the profiling tools were; now
-    one trace spans the whole grid, every point's fused epochs in it."""
+def test_trace_dir_writes_one_trace_of_the_grid(tmp_path):
+    """``--trace-dir`` writes one trace that spans the whole grid, every
+    point's fused epochs in it."""
     t_cli.main(["--synthetic", "--epochs", "1", "--batch-size", "2048", "--lrs", "1e-3",
                 "--optims", "adam", "--adapters", "mlp", "--prompt-modes", "mean",
                 "--trace-dir", str(tmp_path / "trace"), "--device", "cpu"])

@@ -9,7 +9,7 @@ import pytest
 from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
 from incremental_multimodal_medical_learning_ii_tpu.evaluation.tb import TBWriter as JWriter
-from incremental_multimodal_medical_learning_ii_torch.evaluation import tb
+from incremental_multimodal_medical_learning_ii_torch.evaluation import plots, tb
 from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import TBWriter
 
 SCALARS = [("train/Loss", 0.6931, 1), ("train/Loss", 0.5, 2), ("val/AUROC-macro", 0.75, 1),
@@ -64,8 +64,26 @@ def test_buffer_commit_and_discard(tmp_path):
     off.add_scalar("a", 1.0, 1)
     off.close()
     assert not off.enabled
-    with pytest.raises(NotImplementedError, match="not yet ported: figures need matplotlib"):
-        w.add_figure("x", None)
+    # figures are buffered with the scalars: discarded with them, written
+    # in order as RGB PNG image events, none by a rank above 0
+    fig = plots.class_scatter_figure(np.array([0.5, 0.25]), "Recall")
+    w2 = TBWriter(str(tmp_path / "figs"))
+    w2.add_figure("dropped", fig, 1)
+    w2.discard()
+    w2.add_scalar("c", 4.0, 2)
+    w2.add_figure("kept", fig, 2)
+    w2.close()
+    (f2,) = glob.glob(str(tmp_path / "figs" / "events.out.tfevents.*"))
+    assert tb.read_scalars(f2) == [("c", 2, 4.0)]
+    ((tag, step, image),) = tb.read_images(f2)
+    assert (tag, step, image["height"], image["width"], image["colorspace"]) == ("kept", 2, 480,
+                                                                                 640, 3)
+    assert image["png"] == fig.png()
+    other = TBWriter(str(tmp_path / "rank1"))
+    other.rank = 1
+    other.add_figure("x", fig, 1)
+    other.close()
+    assert not (tmp_path / "rank1").exists()
 
 
 def test_crc32c_and_corruption():
@@ -81,3 +99,47 @@ def test_corrupt_file_is_refused(tmp_path):
     p.write_bytes(bytes(data))
     with pytest.raises(ValueError, match="corrupt"):
         tb.read_scalars(p)
+
+
+def test_image_events_read_back_through_tensorboard_like_torchs_writer(tmp_path):
+    """A figure's image event against ``SummaryWriter.add_image`` of the same
+    pixels (the JAX writer's path for its matplotlib figures): TensorBoard
+    reads the same tag, step, size and colour space from both files, and
+    both PNGs decode to the same pixels; a failing commit keeps only what
+    it did not write."""
+    import io
+
+    from PIL import Image
+    from torch.utils.tensorboard import SummaryWriter
+
+    fig = plots.heatmap_figure(np.eye(3), ["a", "b", "c"], ["a", "b", "c"], "F1 score", "F1")
+    ref = SummaryWriter(str(tmp_path / "torch"))
+    ref.add_image("h/F1 score Heatmap", np.asarray(fig.image), 3, dataformats="HWC")
+    ref.close()
+    w = TBWriter(str(tmp_path / "port"))
+    w.add_figure("h/F1 score Heatmap", fig, 3)
+    w.close()
+    decoded = {}
+    for d in ("torch", "port"):
+        acc = EventAccumulator(str(tmp_path / d), size_guidance={"images": 0})
+        acc.Reload()
+        (event,) = acc.Images("h/F1 score Heatmap")
+        assert (event.step, event.height, event.width) == (3, 480, 640)
+        decoded[d] = np.asarray(Image.open(io.BytesIO(event.encoded_image_string)).convert("RGB"))
+    np.testing.assert_array_equal(decoded["port"], decoded["torch"])
+
+    class Broken:
+        size = (640, 480)
+
+        def png(self):
+            raise RuntimeError("render failed")
+
+    w = TBWriter(str(tmp_path / "retry"))
+    w.add_scalar("a", 1.0, 1)
+    w.add_figure("bad", Broken(), 1)
+    with pytest.raises(RuntimeError, match="render failed"):
+        w.commit()
+    w.discard()
+    w.close()
+    (f,) = glob.glob(str(tmp_path / "retry" / "events.out.tfevents.*"))
+    assert tb.read_scalars(f) == [("a", 1, 1.0)] and tb.read_images(f) == []

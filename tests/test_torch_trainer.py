@@ -172,7 +172,7 @@ def _merged_streams(run_dir: Path):
 def test_resume_after_unit_two_equals_an_uninterrupted_run(tmp_path, monkeypatch, fused_unit):
     cfg = data_incremental_config(batch_size=32, eval_batch_size=32, epochs=2, parts=3, lr=1e-3,
                                   continual_learning="myCL", threshold=0.05, adder=0.01,
-                                  fused_unit=fused_unit)
+                                  fused_unit=fused_unit, plot_figures="off")
     bank = build_prompt_bank(synthetic_encode_fn(), create_prompts(CHEXPERT_COMPETITION_TASKS),
                              CHEXPERT_COMPETITION_TASKS)
     bundle = _bundle()

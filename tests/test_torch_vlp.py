@@ -152,5 +152,25 @@ def test_image_text_engine_matches_jax(engines, png, interpolation):
 
 
 def test_grounding_figure_raises(png):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tvlp.plot_phrase_grounding_similarity_map(png, np.zeros((4, 4), np.float32))
+    """The three-panel figure raises nothing now that it is ported: its
+    isolines at the four levels trace what matplotlib's contour generator
+    (contourpy, the JAX figure's) traces on the same masked map (total
+    length, 1e-9 relative), NaN cells draw none, and a flat or empty map
+    draws no isoline (the JAX figure's ``except ValueError``)."""
+    import contourpy
+
+    sim = ndimage.gaussian_filter(np.random.default_rng(1).normal(size=(64, 78)), 3) * 8
+    sim[:5] = np.nan
+    sim[:, -7:] = np.nan
+    fig = tvlp.plot_phrase_grounding_similarity_map(png, sim)
+    assert fig.size == (1500, 600) and fig.image.mode == "RGB"
+    assert fig.data["levels"] == tuple(np.linspace(0.25, 1, 4))
+    gen = contourpy.contour_generator(z=np.ma.masked_invalid(sim), line_type="Separate")
+    for level, segs in fig.data["isolines"].items():
+        ref = sum(np.linalg.norm(np.diff(line, axis=0), axis=1).sum() for line in gen.lines(level))
+        ours = np.linalg.norm(segs[:, 2:] - segs[:, :2], axis=1).sum()
+        assert ref > 0 and abs(ours - ref) <= 1e-9 * ref, (level, ours, ref)
+        assert np.all(segs[:, 1] >= 5) and np.all(segs[:, 0] <= 78 - 7)  # none in the NaN cells
+    for flat in (np.full((64, 78), 0.5), np.full((64, 78), np.nan)):
+        fig = tvlp.plot_phrase_grounding_similarity_map(png, flat)
+        assert all(len(v) == 0 for v in fig.data["isolines"].values())
