@@ -143,7 +143,16 @@ and without the final result line:
    same inputs: heatmap, curve, PCA and prompt-cosine data (1e-6), the
    t-SNE's KL (5%) and its 10 nearest neighbours (a share of 0.2 at
    least); (d) ``ground --out``, ``dataset_stats --patterns-png`` and
-   ``analyze_prompts`` write decodable PNGs of the JAX figures' sizes.
+   ``analyze_prompts`` write decodable PNGs of the JAX figures' sizes;
+19. link health on the card (``cli/linkhealth.py``): ``main`` at its
+   defaults gives backend "cuda" and verdict "ok" with 0 < rtt_ms <= 20,
+   upload_mb_per_s > 0 and 0 < compile_s < 30 (a fresh ``nvcc`` build, a
+   launch and a readback); a second run (``--compile-slow-s 0``) builds a
+   new salt and says "degraded-compile"; ``_build/`` lists the same files
+   before and after; deadlines of 0.01 s give null legs and "timeout" and
+   leave no toolchain process running; ``quick_probe`` returns rtt and
+   upload and prints nothing; the probe's median upload is within 3x of
+   the same 8 MiB pageable copy timed here with CUDA events.
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -4044,6 +4053,123 @@ def figures_phase(results, elapsed_s: float) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# link health (phase 19)
+
+LH_UPLOAD_RATIO = 3.0  # the probe's median upload against the copy timed here, either way
+LH_RTT_MAX_MS = 20.0  # the CLI's own slow-sync line
+LH_COMPILE_MAX_S = 30.0  # the CLI's default --compile-slow-s
+TOOLCHAIN = ("nvcc", "cicc", "ptxas", "cudafe++", "fatbinary", "nvlink")
+
+
+def toolchain_pids() -> set:
+    """The running (not zombie) processes of the CUDA toolchain."""
+    pids = set()
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:  # gone while listed
+            continue
+        name, state = text[text.index("(") + 1:text.rindex(")")], text[text.rindex(")") + 2]
+        if name in TOOLCHAIN and state != "Z":
+            pids.add(int(stat.parent.name))
+    return pids
+
+
+def pageable_upload_mb_per_s(mb: int, samples: int = 5) -> float:
+    """Median MiB/s of ``torch.from_numpy(buf).to("cuda")`` of a fresh
+    pageable ``mb`` MiB uint8 buffer, CUDA events around the copy."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    n = mb * 1024 * 1024
+    rng = np.random.default_rng(0)
+    torch.from_numpy(np.zeros(n, np.uint8)).to("cuda")
+    rates = []
+    for _ in range(samples):
+        buf = torch.from_numpy(rng.integers(0, 256, size=n, dtype=np.uint8))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        buf.to("cuda")
+        end.record()
+        end.synchronize()
+        rates.append(mb / (start.elapsed_time(end) / 1e3))
+    return statistics.median(rates)
+
+
+def linkhealth_phase(card: str, results) -> dict:
+    """(19) ``cli/linkhealth.py`` through ``main`` and ``quick_probe`` as a
+    user calls them; each leg's raw result is recorded by wrapping
+    ``_run_probe`` (the compile leg's salt among them)."""
+    from incremental_multimodal_medical_learning_ii_torch.cli import linkhealth
+    from incremental_multimodal_medical_learning_ii_torch.ops import cuda_build
+
+    legs = []
+    run_probe = linkhealth._run_probe
+
+    def recorded(code, timeout_s, env_extra):
+        legs.append((code, *run_probe(code, timeout_s, env_extra)))
+        return legs[-1][1:]
+
+    def cli(*argv):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            line = linkhealth.main(list(argv))
+        check(printed.getvalue() == json.dumps(line) + "\n",
+              f"linkhealth printed {printed.getvalue()!r}")
+        return line, time.perf_counter() - t0
+
+    sources = dict(cuda_build.SOURCES)
+    build_before = sorted(p.name for p in cuda_build.BUILD_DIR.iterdir())
+    tools_before = toolchain_pids()
+    linkhealth._run_probe = recorded
+    try:
+        ok, ok_s = cli()
+        slow, slow_s = cli("--compile-slow-s", "0")
+        salts = [r["salt"] for code, r, _ in legs if code is linkhealth._COMPILE and r]
+        dead, dead_s = cli("--probe-timeout", "0.01", "--compile-timeout", "0.01")
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            t0 = time.perf_counter()
+            quick = linkhealth.quick_probe(timeout_s=45)
+            quick_s = time.perf_counter() - t0
+    finally:
+        linkhealth._run_probe = run_probe
+    t0 = time.perf_counter()
+    while toolchain_pids() - tools_before and time.perf_counter() - t0 < 5:
+        time.sleep(0.05)
+    left = sorted(toolchain_pids() - tools_before)
+    in_process = pageable_upload_mb_per_s(8)
+    r = dict(default=ok, default_s=ok_s, compile_slow_s_0=slow, compile_slow_s_0_s=slow_s,
+             salts=salts, deadlines=dead, deadlines_s=dead_s, quick_probe=quick, quick_s=quick_s,
+             in_process_upload_mb_per_s=in_process,
+             upload_ratio=ok["upload_mb_per_s"] / in_process if ok["upload_mb_per_s"] else None,
+             toolchain_left=left)
+    results["linkhealth"] = r
+    log(f"  linkhealth on {card}: {json.dumps(r)}")
+    check(ok["backend"] == "cuda" and ok["verdict"] == "ok", f"linkhealth at its defaults: {ok}")
+    check(0 < ok["rtt_ms"] <= LH_RTT_MAX_MS, f"rtt_ms {ok['rtt_ms']}")
+    check(ok["upload_mb_per_s"] > 0, f"upload_mb_per_s {ok['upload_mb_per_s']}")
+    check(0 < ok["compile_s"] < LH_COMPILE_MAX_S, f"compile_s {ok['compile_s']}")
+    check(slow["verdict"] == "degraded-compile" and slow["compile_s"] > 0
+          and "compile_error" not in slow, f"--compile-slow-s 0: {slow}")
+    check(len(salts) == 2 and salts[0] != salts[1], f"compile salts {salts}")
+    check(sorted(p.name for p in cuda_build.BUILD_DIR.iterdir()) == build_before,
+          "the compile leg wrote into _build/")
+    check(cuda_build.SOURCES == sources, "cuda_build.SOURCES changed")
+    check(dead == {"backend": None, "rtt_ms": None, "upload_mb_per_s": None, "compile_s": None,
+                   "verdict": "degraded-compile", "probe_error": "timeout",
+                   "compile_error": "timeout"}, f"deadlines of 0.01 s: {dead}")
+    check(not left, f"toolchain processes left running: {left}")
+    check(set(quick) == {"rtt_ms", "upload_mb_per_s"} and quick["rtt_ms"] > 0
+          and quick["upload_mb_per_s"] > 0, f"quick_probe: {quick}")
+    check(printed.getvalue() == "", f"quick_probe printed {printed.getvalue()!r}")
+    check(1 / LH_UPLOAD_RATIO <= r["upload_ratio"] <= LH_UPLOAD_RATIO,
+          f"probe upload {ok['upload_mb_per_s']} MiB/s against {in_process:.1f} in process")
+    return r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4177,6 +4303,9 @@ def main(argv=None) -> int:
           "(loops under sync debug mode), the t-SNE on the card, the card against its CPU, the "
           "PNG-writing entry points")
     figures_phase(results, time.perf_counter() - t_start)
+    phase("[19] link health on the card: cli/linkhealth.py at its defaults, a second fresh build, "
+          "deadlines, quick_probe, the upload against an in-process copy")
+    linkhealth_phase(card, results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]

@@ -226,6 +226,10 @@ class Trainer:
     # ------------------------------------------------------------------
     # Shared internals
     # ------------------------------------------------------------------
+    @property
+    def params(self):
+        return self.state.params
+
     def _up(self, array) -> torch.Tensor:
         return upload(np.asarray(array), self.device)
 

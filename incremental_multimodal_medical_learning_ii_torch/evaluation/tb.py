@@ -240,6 +240,9 @@ class TBWriter:
         """Drop buffered events (the unit they belong to is re-run on resume)."""
         self._pending = []
 
+    def flush(self) -> None:
+        self.commit()
+
     def close(self) -> None:
         self.commit()
         if self._file is not None:

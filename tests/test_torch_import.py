@@ -40,6 +40,8 @@ SWEEP_TEXT_PARALLEL_MODULES = ("engine.sweep", "cli.sweep", "ops.ring_attention"
                                "parallel.sp", "parallel.pp", "multichip")
 # the figures: PIL drawing, the sklearn curve points, PCA and t-SNE in torch
 FIGURE_MODULES = ("evaluation.plots", "evaluation.projection", "cli.analyze_prompts")
+# the health probe of the card and its toolchain
+PROBE_MODULES = ("cli.linkhealth",)
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -66,7 +68,7 @@ def test_import_all_submodules_loads_no_jax():
     port = "incremental_multimodal_medical_learning_ii_torch."
     assert all(port + m in loaded
                for m in TRAINING_MODULES + EXTRACTION_MODULES + GROUNDING_MODULES + MESH_MODULES
-               + SWEEP_TEXT_PARALLEL_MODULES + FIGURE_MODULES)
+               + SWEEP_TEXT_PARALLEL_MODULES + FIGURE_MODULES + PROBE_MODULES)
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 

@@ -50,6 +50,26 @@ def test_event_file_reads_back_through_tensorboard_like_the_jax_writers(tmp_path
             np.testing.assert_array_equal(np.array(mine[tag]), np.array(ref[tag]), err_msg=tag)
 
 
+def test_flush_writes_what_the_jax_writers_flush_writes(tmp_path):
+    """``flush`` commits the buffer: with both writers still open, each
+    event file reads back the same scalars; a second flush adds nothing."""
+    writers = {}
+    for name, cls in (("jax", JWriter), ("port", TBWriter)):
+        w = writers[name] = cls(str(tmp_path / name))
+        for tag, value, step in SCALARS:
+            w.add_scalar(tag, value, step)
+        w.flush()
+        w.flush()
+    ref, got = _accumulate(tmp_path / "jax"), _accumulate(tmp_path / "port")
+    assert sorted(got) == sorted(ref) == sorted({t for t, _, _ in SCALARS})
+    for tag in ref:
+        np.testing.assert_array_equal(np.array(got[tag]), np.array(ref[tag]), err_msg=tag)
+    (f,) = glob.glob(str(tmp_path / "port" / "events.out.tfevents.*"))
+    assert len(tb.read_scalars(f)) == len(SCALARS)
+    for w in writers.values():
+        w.close()
+
+
 def test_buffer_commit_and_discard(tmp_path):
     w = TBWriter(str(tmp_path))
     w.add_scalar("a", 1.0, 1)

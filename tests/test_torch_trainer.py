@@ -16,8 +16,21 @@ import torch
 from incremental_multimodal_medical_learning_ii_tpu.cli import class_incremental as j_cls
 from incremental_multimodal_medical_learning_ii_tpu.cli import data_incremental as j_data
 from incremental_multimodal_medical_learning_ii_tpu.cli import zero_joint_bounds as j_joint
+from incremental_multimodal_medical_learning_ii_tpu.data.store import (
+    synthetic_dataset as j_synthetic,
+)
 from incremental_multimodal_medical_learning_ii_tpu.engine.trainer import Trainer as JTrainer
 from incremental_multimodal_medical_learning_ii_tpu.models.adapters import AdapterPair as JPair
+from incremental_multimodal_medical_learning_ii_tpu.text.bank import (
+    build_prompt_bank as j_build_bank,
+    synthetic_encode_fn as j_encode_fn,
+)
+from incremental_multimodal_medical_learning_ii_tpu.text.prompts import (
+    create_prompts as j_create_prompts,
+)
+from incremental_multimodal_medical_learning_ii_tpu.utils.config import (
+    ExperimentConfig as JConfig,
+)
 from incremental_multimodal_medical_learning_ii_torch.cli import class_incremental as t_cls
 from incremental_multimodal_medical_learning_ii_torch.cli import data_incremental as t_data
 from incremental_multimodal_medical_learning_ii_torch.cli import zero_joint_bounds as t_joint
@@ -25,7 +38,10 @@ from incremental_multimodal_medical_learning_ii_torch.convert import (
     adapter_params_from_jax,
     params_from_jax,
 )
-from incremental_multimodal_medical_learning_ii_torch.data.store import synthetic_dataset
+from incremental_multimodal_medical_learning_ii_torch.data.store import (
+    EmbeddingDataset,
+    synthetic_dataset,
+)
 from incremental_multimodal_medical_learning_ii_torch.engine import protocols as tprot
 from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer as TTrainer
 from incremental_multimodal_medical_learning_ii_torch.evaluation.tb import read_scalars
@@ -37,6 +53,7 @@ from incremental_multimodal_medical_learning_ii_torch.text.bank import (
 from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
 from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     CHEXPERT_COMPETITION_TASKS,
+    ExperimentConfig,
     data_incremental_config,
 )
 
@@ -149,6 +166,29 @@ def test_driver_matches_jax_cli(tmp_path, monkeypatch, data_dir, injected, drive
     assert tparams.keys() == jparams.keys()
     for k in jparams:
         assert_parity(f"{driver} final {k}", tparams[k].numpy(), jparams[k].numpy(), PARAM_ATOL)
+
+
+def test_params_property_matches_jax(injected):
+    """``Trainer.params`` is the state's params, and after an epoch from
+    the same init and order it holds what JAX's ``Trainer.params`` holds."""
+    j_train = j_synthetic(96, seed=1)
+    t_train = EmbeddingDataset(np.asarray(j_train.embeddings), np.asarray(j_train.labels))
+    kw = dict(mode="joint", epochs=1, batch_size=32, lr=1e-3, plot_figures="off")
+    jt = JTrainer(JConfig(**kw), j_build_bank(j_encode_fn(), j_create_prompts(
+        CHEXPERT_COMPETITION_TASKS), CHEXPERT_COMPETITION_TASKS))
+    tt = TTrainer(ExperimentConfig(**kw), build_prompt_bank(synthetic_encode_fn(), create_prompts(
+        CHEXPERT_COMPETITION_TASKS), CHEXPERT_COMPETITION_TASKS), device="cpu")
+    params_before = {k: v.numpy().copy() for k, v in tt.params.items()}
+    jt.train(j_train, 1)
+    tt.train(t_train, 1)
+    assert tt.params is tt.state.params and jt.params is jt.state.params
+    jparams = adapter_params_from_jax(to_numpy_tree(jax.device_get(jt.params)))
+    assert tt.params.keys() == jparams.keys()
+    moved = 0.0
+    for k in jparams:
+        assert_parity(f"Trainer.params {k}", tt.params[k].numpy(), jparams[k].numpy(), PARAM_ATOL)
+        moved = max(moved, float(np.abs(tt.params[k].numpy() - params_before[k]).max()))
+    assert moved > 0  # an epoch ran
 
 
 def _bundle():
