@@ -255,7 +255,9 @@ def extract_embeddings(
       run's.
 
     ``stats``, if given a dict, is filled with wall-time totals:
-    ``{"dispatch_s", "readback_s", "batches", "retried_batches"}``.
+    ``{"dispatch_s", "readback_s", "feed_wait_s", "batches",
+    "retried_batches"}``; ``feed_wait_s`` is the time the loop waited for
+    the prefetch thread's next prepared batch.
 
     On a ``mesh`` (one call on every rank, with the same arguments),
     ``batch_size`` must divide over the ranks; ``device`` is the rank's.
@@ -282,7 +284,8 @@ def extract_embeddings(
     writes = mesh is None or mesh.rank == 0
     device = resolve_device(device)
     if stats is not None:
-        stats.update(dispatch_s=0.0, readback_s=0.0, batches=0, retried_batches=0)
+        stats.update(dispatch_s=0.0, readback_s=0.0, feed_wait_s=0.0, batches=0,
+                     retried_batches=0)
     channels = 3
     if device_preprocess and grayscale_conv1:
         # the pipeline's 3 channels are identical (ExpandChannels,
@@ -449,7 +452,10 @@ def extract_embeddings(
     try:
         with maybe_trace(trace_dir, device):
             window: list = []  # (device result, host prepared, labels, n)
+            fed = time.perf_counter()
             for prepared, labels, n in _prefetch(prepared_batches(), depth=prefetch_depth):
+                if stats is not None:
+                    stats["feed_wait_s"] += time.perf_counter() - fed
                 with annotate("extract_dispatch"):
                     t0 = time.perf_counter()
                     window.append((dispatch(prepared), prepared, labels, n))
@@ -458,6 +464,7 @@ def extract_embeddings(
                         stats["batches"] += 1
                 if len(window) > readback_interval:
                     flush(window, readback_interval)  # keep the newest in flight
+                fed = time.perf_counter()
             flush(window)
     finally:
         torch.backends.cudnn.benchmark = benchmark

@@ -92,6 +92,31 @@ def test_shards_match_jax_and_windows_agree(weights, tmp_path):
     np.testing.assert_array_equal(one.labels, ds.labels)
 
 
+def test_stats_time_the_wait_for_a_slow_feeder(weights):
+    """``feed_wait_s`` is the loop's wait for the prefetch thread: with a
+    source that takes 0.1 s an image, it holds at least the first batch's
+    two images, the splits cover the six images' production (the loop
+    cannot run ahead of its source), and they add up to no more than the
+    wall."""
+    _, model = weights
+    imgs = _images(6, 5, shapes=((100, 80),))
+
+    def slow():
+        for item in imgs:
+            time.sleep(0.1)
+            yield item
+
+    stats: dict = {}
+    t0 = time.perf_counter()
+    ds = tex.extract_embeddings(slow(), model, dtype=torch.float32, device="cpu", stats=stats,
+                                **KW)
+    wall = time.perf_counter() - t0
+    assert len(ds) == 6 and stats["batches"] == 3
+    splits = stats["feed_wait_s"] + stats["dispatch_s"] + stats["readback_s"]
+    assert stats["feed_wait_s"] >= 0.95 * 0.1 * KW["batch_size"]
+    assert 0.9 * 0.1 * len(imgs) <= splits <= wall
+
+
 @pytest.mark.parametrize("source", ["callable", "iterable"])
 def test_resume_is_bit_exact(weights, tmp_path, source):
     _, model = weights

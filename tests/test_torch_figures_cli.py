@@ -296,3 +296,69 @@ def test_convert_resnet50_state_dict_matches_jax():
         ref = params_from_jax(jconv.convert_resnet50_state_dict(sd, prefix=prefix))
         assert tconv.compare_params(ours, ref, verbose=False) == []
         assert tconv.compare_params(ours, model.encoder, verbose=False) == []
+
+
+# ----------------------------------------------------------------------
+# the figures on mesh ranks
+# ----------------------------------------------------------------------
+MESH_AUROC_ATOL = 1e-4  # tests/test_torch_cli_mesh.py's bar for a metric of two ranks
+
+
+def test_driver_figures_on_two_ranks_match_jax(tmp_path, monkeypatch, data_dir):
+    """``zero_joint_bounds --mesh-devices 2 --plot-figures reference`` on two
+    gloo ranks against the JAX CLI on ``create_mesh(2)``, from the JAX init
+    and the same epoch orders: rank 0 alone writes, and its image events
+    are the JAX run's (tags, steps, height, width, colour space, in
+    order); every heatmap's rows and columns equal, its data within the
+    mesh CLI test's AUROC bar (F1 and AUROC per class and epoch, the
+    prompts' cosines)."""
+    import jax
+
+    from incremental_multimodal_medical_learning_ii_tpu.engine.trainer import Trainer as JTrainer
+    from incremental_multimodal_medical_learning_ii_tpu.models.adapters import AdapterPair as JPair
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import spawn_ranks
+
+    from torch_port_helpers import (
+        assert_parity,
+        figures_driver_on_rank,
+        mesh_orders,
+        to_numpy_tree,
+    )
+
+    tree = to_numpy_tree(JPair(kind="mlp", shared=False, use_image=True,
+                               use_text=True).init(jax.random.PRNGKey(27)))
+    common = ["--data-dir", str(data_dir), "--batch-size", "32", "--epochs", "2",
+              "--plot-figures", "reference", "--mesh-devices", "2"]
+    ranks = spawn_ranks(figures_driver_on_rank, 2, "cpu", "zero_joint_bounds",
+                        [*common, "--device", "cpu", "--log-dir", str(tmp_path / "port")], tree)
+    (out0, params0, heat0, writes0), (out1, params1, heat1, writes1) = ranks
+    assert writes0 and not writes1
+    assert out0 == out1
+    for k in params0:
+        np.testing.assert_array_equal(params0[k], params1[k], err_msg=k)
+    init = JTrainer.__init__
+
+    def trainer_init(self, *a, **k):
+        init(self, *a, **k)
+        self.permutation_source = mesh_orders
+
+    monkeypatch.setattr(JTrainer, "__init__", trainer_init)
+    jheat = []
+    draw = jplots.heatmap_figure
+
+    def capture(data, rows, cols, *a, **k):
+        jheat.append((list(rows), list(cols), np.asarray(data, np.float64)))
+        return draw(data, rows, cols, *a, **k)
+
+    monkeypatch.setattr(jplots, "heatmap_figure", capture)
+    j_joint.main([*common, "--log-dir", str(tmp_path / "jax")])
+    jname, _, jimages = _events(tmp_path / "jax")
+    tname, _, timages = _events(tmp_path / "port")
+    assert tname == jname
+    ref = [(tag, step, p[:3]) for _, tag, step, p in jimages]
+    ours = [(tag, step, p[:3]) for _, tag, step, p in timages]
+    assert len(ref) > 0 and ours == ref
+    assert len(heat0) == len(jheat) > 0
+    for i, ((rows, cols, data), (jrows, jcols, jdata)) in enumerate(zip(heat0, jheat)):
+        assert (rows, cols) == (jrows, jcols) and data.shape == jdata.shape
+        assert_parity(f"figures on two ranks, heatmap {i}", data, jdata, MESH_AUROC_ATOL)

@@ -377,6 +377,32 @@ def driver_on_rank(cli, argv, tree):
     return printout.getvalue(), {k: v.numpy() for k, v in trainers[-1].state.params.items()}
 
 
+def figures_driver_on_rank(cli, argv, tree):
+    """:func:`driver_on_rank` with the figures' data captured: returns (its
+    printout, its final params, the heatmaps' (rows, cols, data) in the
+    order drawn, whether this rank's writer writes)."""
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.evaluation import plots
+
+    heatmaps, writers = [], []
+    draw = plots.heatmap_figure
+
+    def capture(data, rows, cols, *a, **k):
+        heatmaps.append((list(rows), list(cols), np.asarray(data, np.float64)))
+        return draw(data, rows, cols, *a, **k)
+
+    init = Trainer.__init__
+
+    def trainer_init(self, *a, **k):
+        init(self, *a, **k)
+        writers.append(self.writer)
+
+    plots.heatmap_figure = capture
+    Trainer.__init__ = trainer_init
+    printout, params = driver_on_rank(cli, argv, tree)
+    return printout, params, heatmaps, writers[-1].writes
+
+
 def extract_on_rank(tree, imgs, kw, store_dir, cut):
     """``extract_embeddings(mesh=)`` on this rank: the whole image list, a
     clean run with shard checkpoints, and a run cut after ``cut`` images
