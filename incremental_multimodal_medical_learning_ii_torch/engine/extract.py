@@ -27,7 +27,11 @@ device); the model is an argument of each call, as the JAX package passes
 its parameters.  ``trace_dir=`` captures a ``torch.profiler`` trace of
 the run (``utils/profiling.py``) with each batch's dispatch and each
 window's readback in spans named ``extract_dispatch`` and
-``extract_readback``, as the JAX package names them.
+``extract_readback``, as the JAX package names them; inside the dispatch,
+``extract-upload`` and ``extract-encode`` (the forward's enqueue) apart;
+in the prefetch thread, ``extract-prepare`` a batch (the draw or decode,
+the host preprocess, the pinned staging; ``prepared_batches`` counts
+them); and ``extract-shard-write`` for each shard.
 
 ``mesh=`` (``parallel/mesh.py``) runs the extraction on each rank of a
 data-parallel group, as the JAX package shards each batch over its mesh:
@@ -78,7 +82,11 @@ from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
     shard_bounds,
 )
 from incremental_multimodal_medical_learning_ii_torch.utils.device import readback, resolve_device
-from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate, maybe_trace
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import (
+    annotate,
+    count,
+    maybe_trace,
+)
 from incremental_multimodal_medical_learning_ii_torch.utils.retry import retry_call
 
 ImageLabel = Tuple[np.ndarray, np.ndarray]  # (H, W) uint8, (5,) float32
@@ -331,16 +339,17 @@ def extract_embeddings(
             raw, uniq_w_h, uniq_w_w, idx = plan.prepare_deduped(batch_imgs)
             return ("indexed", host(raw), host(uniq_w_h), host(uniq_w_w), host(idx))
 
-        def run(prepared):
+        def staged(prepared):
+            """(encode function, its device operands), the upload enqueued."""
             if prepared[0] == "shared":
                 _, raw, hw = prepared
                 mats = shared_matrices.get(hw)
                 if mats is None:  # once per image shape, then kept on the device
                     sp = shared_plans[hw]
                     mats = shared_matrices[hw] = (up(host(sp.w_h)), up(host(sp.w_w)))
-                return encode_shared(model, up(raw), *mats)
+                return encode_shared, (up(raw), *mats)
             _, raw, uniq_w_h, uniq_w_w, idx = prepared
-            return encode_indexed(model, up(raw), up(uniq_w_h), up(uniq_w_w), up(idx))
+            return encode_indexed, (up(raw), up(uniq_w_h), up(uniq_w_w), up(idx))
 
     else:
         encode_pre = make_encode_preprocessed_fn(dtype=dtype, int8=int8)
@@ -349,8 +358,8 @@ def extract_embeddings(
             return host(np.stack([preprocess_host(im, size=size, crop=crop)
                                   for im in batch_imgs[lo:hi]]))
 
-        def run(prepared):
-            return encode_pre(model, up(prepared))
+        def staged(prepared):
+            return encode_pre, (up(prepared),)
 
     skip = 0
     all_embs: list = []
@@ -379,8 +388,18 @@ def extract_embeddings(
             it = iter(images)
             if skip:
                 it = itertools.islice(it, skip, None)
-        for batch_imgs, labels, n in _batched(it, batch_size):
-            yield prepare(batch_imgs), labels, n
+        batches = _batched(it, batch_size)
+        while True:
+            # the draw or decode happens inside next(): the span covers it
+            with annotate("extract-prepare") as span:
+                item = next(batches, None)
+                if item is None:
+                    span.drop()
+                    return
+                batch_imgs, labels, n = item
+                prepared = prepare(batch_imgs)
+            count("prepared_batches")
+            yield prepared, labels, n
 
     pending_embs: list = []
     pending_labels: list = []
@@ -398,14 +417,18 @@ def extract_embeddings(
             pending_embs.append(embs_np)
             pending_labels.append(labels)
             if seen - written >= checkpoint_interval:
-                store.write_shard(written, np.concatenate(pending_embs), np.concatenate(pending_labels))
+                with annotate("extract-shard-write"):
+                    store.write_shard(written, np.concatenate(pending_embs),
+                                      np.concatenate(pending_labels))
                 written = seen
                 pending_embs, pending_labels = [], []
 
     def encode(prepared):
-        if mesh is None:
-            return run(prepared)
-        return gather_rows(mesh, run(prepared).float(), batch_size)
+        with annotate("extract-upload"):
+            fn, operands = staged(prepared)
+        with annotate("extract-encode"):
+            out = fn(model, *operands)
+            return out if mesh is None else gather_rows(mesh, out.float(), batch_size)
 
     def dispatch(prepared):
         """encode() with retry: an error re-dispatches with exponential backoff."""
@@ -469,7 +492,8 @@ def extract_embeddings(
     finally:
         torch.backends.cudnn.benchmark = benchmark
     if store is not None and pending_embs:
-        store.write_shard(written, np.concatenate(pending_embs), np.concatenate(pending_labels))
+        with annotate("extract-shard-write"):
+            store.write_shard(written, np.concatenate(pending_embs), np.concatenate(pending_labels))
     if mesh is not None:
         barrier(mesh)  # rank 0's shards are on disk before any rank returns
     if not all_embs:

@@ -49,7 +49,7 @@ from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     ContinualLearning,
     ExperimentConfig,
 )
-from incremental_multimodal_medical_learning_ii_torch.utils.profiling import maybe_trace
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate, maybe_trace
 
 
 @dataclasses.dataclass
@@ -163,47 +163,53 @@ def run_zero_joint(
     """Zero-shot (epochs=0) or joint-train upper bound.  ``trace_dir``
     captures a ``torch.profiler`` trace of the whole train/eval loop (as
     ``trace_dir`` does in the other two protocols; ``utils/profiling.py``)."""
-    writer = _rank_writer(cfg, log_dir, mesh)
-    trainer = Trainer(cfg, bank, writer, device, mesh)
-    results: Dict[str, Dict[str, float]] = {}
-    threshold = cfg.threshold
-    try:
-        with maybe_trace(trace_dir, trainer.device):
-            if cfg.epochs > 0:
-                # fused whole run: all epochs and their per-epoch val/test in
-                # one call; the loop below replays the logging and consumes
-                # the staged evals
-                fuse_run = trainer.joint_run_fusible(data.train, (data.val, data.test))
-                if cfg.fused_unit and not fuse_run:
-                    print("[warn] --fused-unit: joint whole-run fusion disabled (train or "
-                          "val/test data is not a device-residentable EmbeddingDataset, or "
-                          "the fused eval machinery is off); running per-epoch")
-                if fuse_run:
-                    trainer.train_joint_run(data.train, threshold, (data.val, data.test))
-                for epoch in range(1, cfg.epochs + 1):
-                    if fuse_run:
-                        trainer.emit_joint_epoch(epoch)
-                    else:
-                        trainer.train(data.train, epoch, threshold=threshold, actual_task=epoch)
-                    results[f"val_ep{epoch}"] = trainer.validate(data.val, epoch, cfg.epochs,
-                                                                 mode="joint")
-                    results[f"test_ep{epoch}"] = trainer.test(
-                        data.test, epoch, cfg.epochs, mode="joint",
-                        tsne_datasets=data.tsne_datasets)
-                    writer.commit()
-            else:
-                results["val_zero"] = trainer.validate(data.val, 0, 0, mode="zero")
-                results["test_zero"] = trainer.test(data.test, 0, 0, mode="zero",
-                                                    tsne_datasets=data.tsne_datasets)
-    except BaseException:
-        writer.discard()
-        raise
-    finally:
-        # the reference saves its adapters in a finally, crash or not
-        _save_final(trainer, writer)
-        writer.close()
+    with annotate("joint-run"):
+        with annotate("trainer-init"):
+            writer = _rank_writer(cfg, log_dir, mesh)
+            trainer = Trainer(cfg, bank, writer, device, mesh)
+        results: Dict[str, Dict[str, float]] = {}
+        try:
+            with maybe_trace(trace_dir, trainer.device):
+                if cfg.epochs > 0:
+                    _joint_epochs(cfg, data, trainer, writer, results)
+                else:
+                    results["val_zero"] = trainer.validate(data.val, 0, 0, mode="zero")
+                    results["test_zero"] = trainer.test(data.test, 0, 0, mode="zero",
+                                                        tsne_datasets=data.tsne_datasets)
+        except BaseException:
+            writer.discard()
+            raise
+        finally:
+            # the reference saves its adapters in a finally, crash or not
+            with annotate("save"):
+                _save_final(trainer, writer)
+            writer.close()
     results["trainer"] = trainer  # type: ignore[assignment]
     return results
+
+
+def _joint_epochs(cfg: ExperimentConfig, data: DataBundle, trainer: Trainer, writer: TBWriter,
+                  results: dict) -> None:
+    """The joint run's epochs: with ``cfg.fused_unit``, all epochs and their
+    per-epoch val/test in one call, whose logging each epoch then replays
+    and whose staged evals it consumes (``emit-epoch``)."""
+    fuse_run = trainer.joint_run_fusible(data.train, (data.val, data.test))
+    if cfg.fused_unit and not fuse_run:
+        print("[warn] --fused-unit: joint whole-run fusion disabled (train or "
+              "val/test data is not a device-residentable EmbeddingDataset, or "
+              "the fused eval machinery is off); running per-epoch")
+    if fuse_run:
+        trainer.train_joint_run(data.train, cfg.threshold, (data.val, data.test))
+    for epoch in range(1, cfg.epochs + 1):
+        with annotate("emit-epoch"):
+            if fuse_run:
+                trainer.emit_joint_epoch(epoch)
+            else:
+                trainer.train(data.train, epoch, threshold=cfg.threshold, actual_task=epoch)
+            results[f"val_ep{epoch}"] = trainer.validate(data.val, epoch, cfg.epochs, mode="joint")
+            results[f"test_ep{epoch}"] = trainer.test(data.test, epoch, cfg.epochs, mode="joint",
+                                                      tsne_datasets=data.tsne_datasets)
+            writer.commit()
 
 
 def _schedule(cfg: ExperimentConfig, skip: int, remaining) -> list:

@@ -21,6 +21,9 @@ epochs and batches on tensors already on the device.  Their metrics stay
 on the device and come back stacked in the JAX functions' shapes; nothing
 in them reads a value back to the host, so on CUDA the host queues the
 whole epoch, unit or run ahead of the card and the caller reads back once.
+Each train step runs in a ``train-step`` span and each eval batch in an
+``eval-batch`` span (``utils/profiling.py``), counted as ``train_steps``
+and ``eval_batches``.
 
 :func:`build_vmapped_sweep` trains K sweep points of one program at once:
 ``torch.func.vmap`` of the fused epoch's body over (K, ...)-stacked states,
@@ -78,6 +81,7 @@ from incremental_multimodal_medical_learning_ii_torch.utils.config import (
     ExperimentConfig,
     Optim,
 )
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate, count
 
 Params = Dict[str, torch.Tensor]
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # torch / optax defaults (Trainer.py:172-186)
@@ -330,7 +334,9 @@ def _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, thresho
     valid = valid.reshape(-1, b)
     per_batch = []
     for i in range(embs.shape[0]):
-        state, metrics = core(state, embs[i], labels[i], valid[i], class_mask, bank, threshold)
+        with annotate("train-step"):
+            state, metrics = core(state, embs[i], labels[i], valid[i], class_mask, bank, threshold)
+        count("train_steps")
         per_batch.append(metrics)
     return state, _stack(per_batch)
 
@@ -580,10 +586,13 @@ def _fused_eval_pass(pair, cfg, params, embs, labels, valid, bank, mesh=None):
     losses: List[torch.Tensor] = []
     scores, preds = [], []
     for start in range(0, embs.shape[0], bs):
-        out = _score_batch(pair, cfg, params, embs[start:start + bs], adapted, mesh)
-        lbl = labels[start:start + bs]
-        lbl = change_labels(lbl) if cfg.change_labels else lbl
-        losses.append(bce_with_logits(out.logits, lbl, valid[start:start + bs, None].expand_as(lbl)))
+        with annotate("eval-batch"):
+            out = _score_batch(pair, cfg, params, embs[start:start + bs], adapted, mesh)
+            lbl = labels[start:start + bs]
+            lbl = change_labels(lbl) if cfg.change_labels else lbl
+            losses.append(bce_with_logits(out.logits, lbl,
+                                          valid[start:start + bs, None].expand_as(lbl)))
+        count("eval_batches")
         scores.append(out.scores)
         preds.append(out.preds)
     c = labels.shape[1]

@@ -21,7 +21,11 @@ counters (:meth:`Trainer._epoch_perm`) and log the same streams; metrics
 are read back once per epoch, unit or run.  Each fused call and each eval
 pass runs inside a named span of a profiler trace (``utils/profiling.py``:
 ``fused-train-epoch``, ``fused-train-unit``, ``fused-joint-run``,
-``fused-incremental-run``, ``eval-pass``, the JAX trainer's names).
+``fused-incremental-run``, ``eval-pass``, the JAX trainer's names); so do
+a dataset's padding and upload on its first use (``upload``; ``upload_bytes``
+counts them), the draw and upload of a fused call's epoch orders
+(``epoch-orders``), the replay of a fused call's train logging
+(``train-logs``) and the host metrics of each eval (``eval-metrics``).
 
 ``mesh=`` (``parallel/mesh.py``) runs the trainer on each rank of a
 data-parallel group, as the JAX ``Trainer(mesh=)`` runs on a device mesh:
@@ -92,7 +96,7 @@ from incremental_multimodal_medical_learning_ii_torch.utils.device import (
     resolve_device,
     upload,
 )
-from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate, count
 
 
 def _unit_class_mask(current_task: Optional[int], more_labels: bool) -> np.ndarray:
@@ -383,15 +387,17 @@ class Trainer:
         cached = self._device_data_cache.get(key)
         if cached is not None:
             return cached
-        n = len(dataset)
-        n_pad = num_batches(n, bs) * bs
-        embs = np.zeros((n_pad, dataset.embeddings.shape[1]), np.float32)
-        labels = np.zeros((n_pad, dataset.labels.shape[1]), np.float32)
-        valid = np.zeros(n_pad, np.float32)
-        embs[:n] = dataset.embeddings
-        labels[:n] = dataset.labels
-        valid[:n] = 1.0
-        cached = (self._up(embs), self._up(labels), self._up(valid))
+        with annotate("upload"):
+            n = len(dataset)
+            n_pad = num_batches(n, bs) * bs
+            embs = np.zeros((n_pad, dataset.embeddings.shape[1]), np.float32)
+            labels = np.zeros((n_pad, dataset.labels.shape[1]), np.float32)
+            valid = np.zeros(n_pad, np.float32)
+            embs[:n] = dataset.embeddings
+            labels[:n] = dataset.labels
+            valid[:n] = 1.0
+            cached = (self._up(embs), self._up(labels), self._up(valid))
+        count("upload_bytes", embs.nbytes + labels.nbytes + valid.nbytes)
         try:
             if did not in self._cache_refs:
                 wself = weakref.ref(self)
@@ -431,15 +437,17 @@ class Trainer:
         n_b = len(fetched["loss"])
         if n_b == 0:
             return  # an empty unit: nothing trained, nothing to log
-        pending = []
-        for i in range(n_b):
-            metrics = {k: v[i] for k, v in fetched.items()}
-            metrics["_step"] = self._py_step
-            self._py_step += 1
-            pending.append((iteration_of(i), metrics))
-        last = self._flush_train_logs(pending, trained_classes=np.nonzero(np.asarray(class_mask))[0])
-        if use_my_cl and last is not None and "n_reset" in last:
-            self._log_reset_counts(last, pending[-1][0])
+        with annotate("train-logs"):
+            pending = []
+            for i in range(n_b):
+                metrics = {k: v[i] for k, v in fetched.items()}
+                metrics["_step"] = self._py_step
+                self._py_step += 1
+                pending.append((iteration_of(i), metrics))
+            last = self._flush_train_logs(pending,
+                                          trained_classes=np.nonzero(np.asarray(class_mask))[0])
+            if use_my_cl and last is not None and "n_reset" in last:
+                self._log_reset_counts(last, pending[-1][0])
 
     def _train_fused(self, dataset, class_mask, threshold, use_my_cl, iteration_of) -> int:
         """One epoch in one call (steps.build_fused_epoch); returns the
@@ -544,8 +552,9 @@ class Trainer:
         n_epochs = len(eff_thresholds)
         d_embs, d_labels, d_valid = self._device_data(dataset)
         n, n_pad = len(dataset), int(d_embs.shape[0])
-        d_perms = self._up(np.stack([self._epoch_perm(n, n_pad) for _ in range(n_epochs)]))
-        d_thresholds = self._up(np.asarray(eff_thresholds, np.float32))
+        with annotate("epoch-orders"):
+            d_perms = self._up(np.stack([self._epoch_perm(n, n_pad) for _ in range(n_epochs)]))
+            d_thresholds = self._up(np.asarray(eff_thresholds, np.float32))
         eval_ops = ()
         if eval_mode is not None:
             eval_ops = (*self._device_data(eval_data[0], cfg.eval_batch_size),
@@ -943,14 +952,16 @@ class Trainer:
 
     def validate(self, dataset, epoch, epochs, mode="joint", tasks_order=None, final_unit=None):
         y_true, y_pred, y_score = self._eval_pass(dataset, epoch, log_loss_prefix="val")
-        return self.evaluate_model(y_true, y_pred, y_score, mode, epoch, "val",
-                                   epochs, tasks_order, final_unit=final_unit)
+        with annotate("eval-metrics"):
+            return self.evaluate_model(y_true, y_pred, y_score, mode, epoch, "val",
+                                       epochs, tasks_order, final_unit=final_unit)
 
     def test(self, dataset, epoch, epochs, mode="joint", tasks_order=None,
              tsne_datasets: Optional[Sequence[EmbeddingDataset]] = None, final_unit=None):
         y_true, y_pred, y_score = self._eval_pass(dataset, epoch, log_loss_prefix=None)
-        metrics = self.evaluate_model(y_true, y_pred, y_score, mode, epoch, "test", epochs,
-                                      tasks_order, final_unit=final_unit)
+        with annotate("eval-metrics"):
+            metrics = self.evaluate_model(y_true, y_pred, y_score, mode, epoch, "test", epochs,
+                                          tasks_order, final_unit=final_unit)
         if self._plot_now(mode, epoch, epochs, final_unit):
             self._plot_text_embedding_figures(epoch)
             if tsne_datasets is not None:

@@ -15,7 +15,8 @@ image 4}``).  A figure (``evaluation/plots.py``) is an image value as
 and :func:`read_images` read it back.
 
 Events are buffered and reach the file only on :meth:`TBWriter.commit`
-(the protocols commit at every unit boundary and on close);
+(the protocols commit at every unit boundary and on close; each commit is a
+``tb-commit`` span of ``utils/profiling.py``);
 :meth:`TBWriter.discard` drops the buffer, so a crashed unit leaves no
 partial events and a resumed run's stream equals an uninterrupted one's.
 
@@ -33,6 +34,8 @@ import struct
 import time
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
+
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate
 
 def _crc32c_table() -> List[int]:
     table = []
@@ -222,19 +225,21 @@ class TBWriter:
         """Write every buffered event to the event file and flush."""
         if not self.writes:
             return
-        if self._file is None:
-            self._file = self._open()
-        # pop as written: a retried commit must not write an event twice
-        while self._pending:
-            kind, tag, payload, step = self._pending[0]
-            if kind == "scalar":
-                event = encode_event(time.time(), step, scalar=(tag, payload))
-            else:
-                width, height = payload.size
-                event = encode_event(time.time(), step, image=(tag, height, width, 3, payload.png()))
-            self._file.write(record(event))
-            self._pending.pop(0)
-        self._file.flush()
+        with annotate("tb-commit"):
+            if self._file is None:
+                self._file = self._open()
+            # pop as written: a retried commit must not write an event twice
+            while self._pending:
+                kind, tag, payload, step = self._pending[0]
+                if kind == "scalar":
+                    event = encode_event(time.time(), step, scalar=(tag, payload))
+                else:
+                    width, height = payload.size
+                    event = encode_event(time.time(), step,
+                                         image=(tag, height, width, 3, payload.png()))
+                self._file.write(record(event))
+                self._pending.pop(0)
+            self._file.flush()
 
     def discard(self) -> None:
         """Drop buffered events (the unit they belong to is re-run on resume)."""

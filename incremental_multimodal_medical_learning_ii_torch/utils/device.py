@@ -8,7 +8,9 @@ TF32, which keeps about three decimal digits).
 
 :func:`upload` and :func:`readback` move data to and from the card without
 a synchronisation per tensor: uploads go through pinned memory, and a
-readback of many tensors waits on the stream once.
+readback of many tensors waits on the stream once, in a ``readback`` span
+(``utils/profiling.py``; ``readbacks`` and ``readback_bytes`` count the
+readbacks of at least one tensor and the tensors' bytes).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import annotate, count
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -49,9 +53,13 @@ def readback(tree):
     with one synchronisation for all of them (CUDA tensors are copied into
     pinned memory without blocking, then the stream is waited on once)."""
     copies = []
+    tensors = nbytes = 0
 
     def start(x):
+        nonlocal tensors, nbytes
         if isinstance(x, torch.Tensor):
+            tensors += 1
+            nbytes += x.nbytes
             if x.is_cuda:
                 dst = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
                 dst.copy_(x, non_blocking=True)
@@ -78,6 +86,10 @@ def readback(tree):
         return x
 
     staged = start(tree)
-    for dev in set(copies):
-        torch.cuda.current_stream(dev).synchronize()
+    if tensors:  # a tree of host values alone reads nothing back
+        with annotate("readback"):
+            for dev in set(copies):
+                torch.cuda.current_stream(dev).synchronize()
+        count("readbacks")
+        count("readback_bytes", nbytes)
     return finish(staged)

@@ -339,6 +339,34 @@ def extract_manifest_on_rank(tree, csv_path, img_dir, kw, store_dir, cut):
     return out
 
 
+def recorded_joint_on_rank(splits, kw):
+    """A fused joint run on this rank of two, under the port's recorder:
+    returns the rank's ``train-step`` spans and its counters."""
+    torch.set_num_threads(1)
+    from incremental_multimodal_medical_learning_ii_torch.data.store import EmbeddingDataset
+    from incremental_multimodal_medical_learning_ii_torch.engine import protocols
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import create_mesh
+    from incremental_multimodal_medical_learning_ii_torch.text.bank import (
+        build_prompt_bank,
+        synthetic_encode_fn,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+    from incremental_multimodal_medical_learning_ii_torch.utils import profiling
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+        CHEXPERT_COMPETITION_TASKS,
+        ExperimentConfig,
+    )
+
+    mesh = create_mesh(2)
+    bundle = protocols.DataBundle(*(EmbeddingDataset(e, lbl) for e, lbl in splits))
+    bank = build_prompt_bank(synthetic_encode_fn(), create_prompts(CHEXPERT_COMPETITION_TASKS),
+                             CHEXPERT_COMPETITION_TASKS)
+    with profiling.recording() as rec:
+        protocols.run_zero_joint(ExperimentConfig(**kw), bundle, bank, log_dir=None, mesh=mesh)
+    return {"rank": mesh.rank, "steps": [tuple(s[:3]) for s in rec.named("train-step")],
+            "counters": dict(rec.counters)}
+
+
 def fail_on_rank_one():
     """A rank function whose rank 1 raises while rank 0 waits in a collective."""
     from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import barrier, create_mesh
