@@ -167,7 +167,18 @@ and without the final result line:
    in the cosine section; the text, train-epoch and cosine chains replayed
    as CUDA graphs, their launches counted at each replay; K1 at 6144x10
    and K3 at the quick text shape against their plain versions, timed;
-   (c) each stage's ms against its roofline cap at the same batch.
+   (c) each stage's ms against its roofline cap at the same batch;
+21. a training epoch as a CUDA graph (``engine/steps.py::EpochGraph``): the
+   joint, data-incremental (20 parts, myCL, ``--fused-unit``) and
+   class-incremental (MORE_LABELS MAX) drivers at phase 12's scale, their
+   fused loops under sync debug mode, graphed and forced onto the eager
+   loop on the same inputs: the staged losses, eval outputs and per-epoch
+   / per-unit states and the final parameters bit for bit; one capture a
+   Trainer, a replay an epoch, ``train_steps`` the eager run's and no
+   ``train-step`` span; device memory back to its level once a Trainer is
+   gone (after the process's first capture), a joint run's peak below
+   2 GiB; the joint run on one NCCL rank stays eager; ms an epoch of the
+   joint run both ways, in turns, and the first graphed call (capture).
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -1278,7 +1289,9 @@ def text_times(model, ids, mask, results):
 # train set, a 16,027-row val split, 2,048 test rows; bs 6144, eval bs 1024
 TRAIN_ROWS, VAL_ROWS, TEST_ROWS = 191_027, 16_027, 2_048
 EVAL_BS = 1024
-TRAIN_FLAGS = ["--batch-size", "6144", "--lr", "1e-4", "--epochs", "10", "--plot-figures", "off"]
+TRAIN_BS, TRAIN_EPOCHS = 6144, 10
+TRAIN_FLAGS = ["--batch-size", str(TRAIN_BS), "--lr", "1e-4", "--epochs", str(TRAIN_EPOCHS),
+               "--plot-figures", "off"]
 K1_EVAL_ATOL = 1e-6
 CPU_LOSS_ATOL = 1e-5  # CUDA run vs the same run on the CPU: train/Loss, val/Loss
 CPU_AUROC_ATOL = 1e-3  # val/test AUROC-macro
@@ -4376,6 +4389,286 @@ def bench_phase(card: str, kind: str, results) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 21: a training epoch as a CUDA graph
+# ----------------------------------------------------------------------
+GRAPH_RUNS = {  # name: (protocol, config, units), phase 12's scale and flags, one Trainer each
+    "joint": ("run_zero_joint", dict(mode="joint"), 1),
+    "data-inc --fused-unit": ("run_data_incremental",
+                              dict(mode="data-inc", parts=20, continual_learning="myCL"), 20),
+    "class-pos-neg MORE_LABELS MAX": ("run_class_incremental",
+                                      dict(mode="class-pos-neg", more_labels=True,
+                                           prompt_mode="max"), 5),
+}
+GRAPH_EPOCHS_TIMED = 5  # epochs a turn in the eager / graphed epoch times
+GRAPH_PEAK_BYTES = 2 * 2**30  # a graphed joint run's device memory peak
+
+
+def staged_fused_calls(kept: list):
+    """Wrap the trainer's whole-run folds so each call's staging lands in
+    ``kept``, on the host: the metrics and evals it read back and the
+    per-epoch (joint) or per-unit states it left on the card.  Returns
+    the undo function."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+
+    originals = {n: getattr(Trainer, n) for n in ("train_joint_run", "train_incremental_run")}
+
+    def staging(trainer, name):
+        if name == "train_joint_run":
+            return trainer._joint_fetched, trainer._joint_evals, trainer._joint_states
+        s = trainer._run_staging
+        return s["fetched"], s["evals"], s["unit_states"]
+
+    def keep(name, fn):
+        def wrapped(self, *a, **k):
+            out = fn(self, *a, **k)
+            kept.append(tree_map(lambda x: x.cpu() if torch.is_tensor(x) else np.copy(x),
+                                 staging(self, name)))
+            return out
+        return wrapped
+
+    for n, fn in originals.items():
+        setattr(Trainer, n, keep(n, fn))
+    return lambda: [setattr(Trainer, n, fn) for n, fn in originals.items()]
+
+
+def leaf_gaps(a, b) -> dict:
+    """Two staged trees: whether every leaf is equal bit for bit, the
+    largest |difference| and the number of leaves."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    check(len(la) == len(lb), f"the staged outputs differ in structure: {len(la)} / {len(lb)}")
+    arrays = [(np.asarray(x, np.float64), np.asarray(y, np.float64)) for x, y in
+              ((x.numpy() if torch.is_tensor(x) else x, y.numpy() if torch.is_tensor(y) else y)
+               for x, y in zip(la, lb))]
+    check(all(x.shape == y.shape for x, y in arrays), "the staged outputs differ in shape")
+    return dict(equal=all(np.array_equal(x, y) for x, y in arrays),
+                max_abs=max(float(np.max(np.abs(x - y), initial=0.0)) for x, y in arrays),
+                leaves=len(la))
+
+
+def graph_run(name: str, data, bank, graphed: bool, mesh=None) -> dict:
+    """One driver of ``GRAPH_RUNS`` on the card, its fused loops under sync
+    debug mode (``guarded_loops``), on the graphed path or forced onto the
+    eager loop: the staging of its fused call, its final state, the
+    recorder's counters and spans, its wall and device memory peak."""
+    import collections
+    import gc
+
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.engine import protocols, steps
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
+    from incremental_multimodal_medical_learning_ii_torch.utils.profiling import recording
+
+    proto, kw, _ = GRAPH_RUNS[name]
+    cfg = ExperimentConfig(batch_size=TRAIN_BS, eval_batch_size=EVAL_BS, lr=1e-4,
+                           epochs=TRAIN_EPOCHS, fused_unit=True, plot_figures="off", **kw)
+    kept: list = []
+    calls: dict = {}
+    host_s: dict = {}
+    undo = [staged_fused_calls(kept), guarded_loops(calls, host_s)]
+    rule = steps._graphs_epoch
+    if not graphed:
+        steps._graphs_epoch = lambda mesh, embs: False
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        with recording() as rec:
+            res = getattr(protocols, proto)(cfg, data, bank, log_dir=None,
+                                            device="cuda" if mesh is None else mesh.device,
+                                            mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        steps._graphs_epoch = rule
+        for u in undo:
+            u()
+    check(len(kept) == 1, f"{name}: {len(kept)} whole-run folds, not one")
+    final = {k: v.cpu() for k, v in res["trainer"].state.params.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del res
+    gc.collect()
+    torch.cuda.synchronize()
+    names = collections.Counter(s.name for s in rec.spans)
+
+    def span_ms(span):
+        return [round((s.t1_ns - s.t0_ns) / 1e6, 3) for s in rec.named(span)]
+
+    fold = "fused-joint-run" if name == "joint" else "fused-incremental-run"
+    return dict(staged=kept[0], final=final, wall_s=wall, counters=dict(rec.counters),
+                spans={n: names[n] for n in ("train-step", "train-graph-capture",
+                                             "train-epoch-replay", "eval-batch")},
+                fold_ms=span_ms(fold), capture_ms=span_ms("train-graph-capture"),
+                replay_ms=span_ms("train-epoch-replay"), peak_bytes=peak,
+                allocated_before=before, allocated_after_trainer=torch.cuda.memory_allocated(),
+                guarded_calls=dict(calls))
+
+
+def epoch_times(data, bank) -> dict:
+    """ms an epoch of the joint run (32 steps of 6,144 rows), the fused
+    epoch callable eager and graphed in turns on one Trainer's state and
+    data (CUDA events over ``GRAPH_EPOCHS_TIMED`` epochs a turn); the
+    graph's capture (host clock, synchronised) apart."""
+    import numpy as np
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.engine import steps
+    from incremental_multimodal_medical_learning_ii_torch.engine.trainer import Trainer
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
+
+    trainer = Trainer(ExperimentConfig(batch_size=TRAIN_BS, eval_batch_size=EVAL_BS, lr=1e-4,
+                                       plot_figures="off"), bank, device="cuda")
+    embs, labels, valid = trainer._device_data(data.train)
+    n, n_pad = len(data.train), int(embs.shape[0])
+    perms = [trainer._up(steps.epoch_permutation(27, e, n, n_pad).numpy())
+             for e in range(GRAPH_EPOCHS_TIMED)]
+    mask, thr = torch.ones(5, device=trainer.device), torch.zeros((), device=trainer.device)
+    rule = steps._graphs_epoch
+    state = trainer.state
+
+    def turn(graphed: bool) -> float:
+        nonlocal state
+        if not graphed:
+            steps._graphs_epoch = lambda mesh, e: False
+        try:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for perm in perms:
+                state, _ = trainer._fused_epoch(state, embs, labels, valid, trainer.bank, mask,
+                                                thr, perm)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / len(perms)
+        finally:
+            steps._graphs_epoch = rule
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = trainer._fused_epoch(state, embs, labels, valid, trainer.bank, mask, thr, perms[0])
+    torch.cuda.synchronize()
+    first_graphed_s = time.perf_counter() - t0  # the capture and one replay
+    turn(False)  # the eager loop's first launches
+    ms = {"eager": [], "graphed": []}
+    for graphed in (False, True, True, False, False, True):
+        ms["graphed" if graphed else "eager"].append(turn(graphed))
+    out = {k: float(np.median(v)) for k, v in ms.items()}
+    return dict(ms_per_epoch=out, turns=ms, first_graphed_call_s=first_graphed_s,
+                speedup=out["eager"] / out["graphed"])
+
+
+def train_graph_phase(results) -> dict:
+    """Phase 21: the graphed fused drivers against the same drivers forced
+    onto the eager loop, at phase 12's scale, on the same inputs: the
+    staged losses, evals and per-epoch / per-unit states and the final
+    parameters bit for bit; one capture a Trainer (one signature each) and
+    a replay an epoch; the graph and its pool freed with the Trainer; one
+    NCCL rank (a mesh) stays eager; ms an epoch both ways."""
+    import shutil
+    import tempfile
+
+    from incremental_multimodal_medical_learning_ii_torch.data.store import EmbeddingDataset
+    from incremental_multimodal_medical_learning_ii_torch.engine.protocols import DataBundle
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import create_mesh
+    from incremental_multimodal_medical_learning_ii_torch.text.bank import (
+        build_prompt_bank,
+        synthetic_encode_fn,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.text.prompts import create_prompts
+    from incremental_multimodal_medical_learning_ii_torch.utils.config import (
+        CHEXPERT_COMPETITION_TASKS,
+    )
+
+    bank = build_prompt_bank(synthetic_encode_fn(27), create_prompts(CHEXPERT_COMPETITION_TASKS),
+                             CHEXPERT_COMPETITION_TASKS)
+    out: dict = {"runs": {}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_graph_"))
+    try:
+        data_dir = training_data(tmp / "data")
+        data = DataBundle(*(EmbeddingDataset.load(data_dir / f"{s}.npz")
+                            for s in ("train", "val", "test")))
+        for name, (_, kw, units) in GRAPH_RUNS.items():
+            runs = {kind: graph_run(name, data, bank, kind == "graphed")
+                    for kind in ("eager", "graphed")}
+            eager, graphed = runs["eager"], runs["graphed"]
+            staged = leaf_gaps(graphed["staged"], eager["staged"])
+            final = leaf_gaps(graphed["final"], eager["final"])
+            epochs = units * TRAIN_EPOCHS
+            c = graphed["counters"]
+            r = dict(staged=staged, final=final,
+                     **{f"{k}_{kind}": runs[kind][k] for kind in runs
+                        for k in ("wall_s", "fold_ms", "spans", "peak_bytes", "guarded_calls")},
+                     counters_graphed={k: c.get(k, 0) for k in ("train_graph_captures",
+                                                               "train_graph_replays",
+                                                               "train_steps")},
+                     capture_ms=graphed["capture_ms"], replay_ms=graphed["replay_ms"],
+                     allocated=[graphed["allocated_before"], graphed["allocated_after_trainer"]])
+            out["runs"][name] = r
+            log(f"  {name}: graphed vs eager staged {json.dumps(staged)}, final {json.dumps(final)}; "
+                f"fold {graphed['fold_ms']} / {eager['fold_ms']} ms, wall {graphed['wall_s']:.3f} / "
+                f"{eager['wall_s']:.3f} s; capture {graphed['capture_ms']} ms, replays "
+                f"{graphed['replay_ms'][:3]}... ms; counters {json.dumps(r['counters_graphed'])}; "
+                f"spans {json.dumps(graphed['spans'])} / {json.dumps(eager['spans'])}; peak "
+                f"{graphed['peak_bytes'] / 2**20:.1f} / {eager['peak_bytes'] / 2**20:.1f} MiB; "
+                f"allocated before / after the Trainer {r['allocated']}")
+            check(staged["equal"] and final["equal"],
+                  f"{name}: the graphed run differs from the eager one: {staged} {final}")
+            check(r["counters_graphed"] == {"train_graph_captures": 1,
+                                            "train_graph_replays": epochs,
+                                            "train_steps": eager["counters"]["train_steps"]},
+                  f"{name}: captures / replays / steps {r['counters_graphed']}, want 1 / {epochs} / "
+                  f"{eager['counters']['train_steps']}")
+            check(graphed["spans"]["train-step"] == 0
+                  and graphed["spans"]["train-graph-capture"] == 1
+                  and graphed["spans"]["train-epoch-replay"] == epochs
+                  and eager["spans"]["train-step"] == eager["counters"]["train_steps"]
+                  and "train_graph_captures" not in eager["counters"],
+                  f"{name}: spans {graphed['spans']} (graphed) / {eager['spans']} (eager)")
+            # the first capture of the process gives the side stream its cuBLAS workspaces,
+            # which the library keeps; every later Trainer must leave nothing behind
+            check(name == "joint" or graphed["allocated_after_trainer"] <= graphed["allocated_before"],
+                  f"{name}: {r['allocated']} bytes allocated before / after the graphed Trainer: "
+                  "its graph or pool outlived it")
+            if name == "joint":
+                joint_eager_final = eager["final"]
+            check(all(runs[k]["guarded_calls"] for k in runs), f"{name}: a fused loop ran unguarded")
+        joint = out["runs"]["joint"]
+        joint_steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_BS)  # 320 at the reference's scale
+        check(joint["counters_graphed"]["train_steps"] == joint_steps,
+              f"joint: {joint['counters_graphed']}, want {joint_steps} steps")
+        check(joint["peak_bytes_graphed"] < GRAPH_PEAK_BYTES,
+              f"joint: device memory peak {joint['peak_bytes_graphed']} bytes")
+        mesh = create_mesh(1)
+        one = graph_run("joint", data, bank, True, mesh=mesh)
+        out["nccl1_joint"] = dict(counters={k: v for k, v in one["counters"].items()
+                                            if k.startswith("train")}, spans=one["spans"],
+                                  vs_no_mesh=leaf_gaps(one["final"], joint_eager_final))
+        log(f"  joint on one NCCL rank: {json.dumps(out['nccl1_joint'])}")
+        check("train_graph_captures" not in one["counters"]
+              and "train_graph_replays" not in one["counters"]
+              and one["spans"]["train-step"] == one["counters"]["train_steps"] == joint_steps,
+              f"one NCCL rank took the graph: {out['nccl1_joint']}")
+        out["epoch_times"] = epoch_times(data, bank)
+        log(f"  ms an epoch of the joint run, eager / graphed: {json.dumps(out['epoch_times'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        out_dir = REPO / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_train_graph.json").write_text(json.dumps(out, indent=1, default=str))
+    results["train_graph"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4516,6 +4809,10 @@ def main(argv=None) -> int:
           "bench_all at --quick with every section, --serve, --stages, --roofline and "
           "--parallel-model; the stages against the roofline's caps")
     bench = bench_phase(card, kind, results)
+    phase("[21] a training epoch as a CUDA graph: the three drivers graphed against the eager "
+          "loop on the same inputs (loops under sync debug mode), captures and replays, memory "
+          "freed with the Trainer, one NCCL rank eager, ms an epoch both ways")
+    train_graph_phase(results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]

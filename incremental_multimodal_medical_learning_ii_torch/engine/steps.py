@@ -21,9 +21,30 @@ epochs and batches on tensors already on the device.  Their metrics stay
 on the device and come back stacked in the JAX functions' shapes; nothing
 in them reads a value back to the host, so on CUDA the host queues the
 whole epoch, unit or run ahead of the card and the caller reads back once.
-Each train step runs in a ``train-step`` span and each eval batch in an
-``eval-batch`` span (``utils/profiling.py``), counted as ``train_steps``
-and ``eval_batches``.
+Each eval batch runs in an ``eval-batch`` span (``utils/profiling.py``),
+counted as ``eval_batches``.
+
+On one card the host could not keep up with it: an epoch is ``n_pad / B``
+steps of about a hundred small eager kernels each (forward,
+``torch.autograd.grad``, Adam, the guard's select), and the card idled
+while Python dispatched them.  So where the operands are CUDA tensors and
+there is no mesh, an epoch (the row gather by ``perm`` and every step) is
+a CUDA graph (:class:`EpochGraph`): captured once per signature of its
+operands' shapes and dtypes, in a cache each fused callable keeps (so a
+``Trainer`` holds its graphs and their memory pools, and frees them with
+itself), then replayed once an epoch, after the state, the threshold and
+the order are copied into its static buffers (the unit's data when a unit
+begins).  A capture costs an epoch's dispatch once, plus a few warm-up
+steps.  The graph runs the same ``core`` as the eager loop, and the fused
+calls return clones of its outputs, never its buffers.  The eager loop
+runs every other call: CPU operands, any mesh (NCCL or gloo), and a call
+made while a capture is under way (an enclosing graph captures the eager
+loop).  An eager step runs in a ``train-step`` span, counted as
+``train_steps``; a capture runs in ``train-graph-capture``
+(``train_graph_captures``), a replay in ``train-epoch-replay``
+(``train_graph_replays``, and ``train_steps`` by the epoch's steps).  The
+eval passes, profCL's reset between epochs and :func:`build_train_step`
+stay eager.
 
 :func:`build_vmapped_sweep` trains K sweep points of one program at once:
 ``torch.func.vmap`` of the fused epoch's body over (K, ...)-stacked states,
@@ -54,12 +75,14 @@ operands); here each rank holds plain local tensors, so the kernel runs.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
 from incremental_multimodal_medical_learning_ii_torch.engine.cl import weight_reset
 from incremental_multimodal_medical_learning_ii_torch.models.adapters import AdapterPair
@@ -322,10 +345,13 @@ def unstack(tree, index: int):
     return tuple(unstack(v, index) for v in tree)
 
 
-def _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, threshold, perm):
+def _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, threshold, perm,
+                step_spans: bool = True):
     """One epoch over ``(n_pad / B)`` batch slabs; the shuffled order is one
     gather of the whole epoch first (``perm`` has the padding rows at its
-    tail), then contiguous slabs.  Returns (state, stacked metrics)."""
+    tail), then contiguous slabs.  Returns (state, stacked metrics).
+    ``step_spans=False`` opens no ``train-step`` span and counts no step
+    (a capture: the replays count them)."""
     b = cfg.batch_size
     if cfg.shuffle_train:
         embs, labels, valid = (t.index_select(0, perm) for t in (embs, labels, valid))
@@ -334,11 +360,178 @@ def _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, thresho
     valid = valid.reshape(-1, b)
     per_batch = []
     for i in range(embs.shape[0]):
-        with annotate("train-step"):
+        with annotate("train-step") if step_spans else contextlib.nullcontext():
             state, metrics = core(state, embs[i], labels[i], valid[i], class_mask, bank, threshold)
-        count("train_steps")
+        if step_spans:
+            count("train_steps")
         per_batch.append(metrics)
     return state, _stack(per_batch)
+
+
+# ----------------------------------------------------------------------
+# An epoch as a CUDA graph (see the module's docstring)
+# ----------------------------------------------------------------------
+WARMUP_STEPS = 3  # eager steps on the capture's stream before it (library handles, workspaces)
+
+
+def _graphs_epoch(mesh, embs) -> bool:
+    """Whether a fused call's epochs over ``embs`` replay a graph: CUDA
+    operands, no mesh, rows to train, and no capture already under way on
+    the current stream."""
+    return (mesh is None and embs.is_cuda and embs.shape[0] > 0
+            and not torch.cuda.is_current_stream_capturing())
+
+
+# one side stream a device for every capture, as ``torch.cuda.graph`` keeps
+# one: cuBLAS gets a workspace for each (handle, stream) pair and keeps it
+# for the life of the process, so a new stream a capture would grow memory
+# run after run
+_side_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+class CudaGraph:
+    """The capture and replay of one CUDA graph on the side stream of
+    ``device``: what :class:`EpochGraph` needs of ``torch.cuda``."""
+
+    def __init__(self, device):
+        self.graph = torch.cuda.CUDAGraph()
+        device = torch.device(device)
+        if device not in _side_streams:
+            _side_streams[device] = torch.cuda.Stream(device)
+        self.stream = _side_streams[device]
+
+    @contextlib.contextmanager
+    def _on_side_stream(self):
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            yield
+        current.wait_stream(self.stream)
+
+    def warm_up(self, fn) -> None:
+        with self._on_side_stream():
+            fn()
+
+    def capture(self, fn):
+        """``fn()`` captured; returns its outputs, the graph's static outputs.
+        ``capture_begin``/``capture_end`` directly: ``torch.cuda.graph``
+        would synchronise the device and empty the allocator's cache on
+        every capture."""
+        with self._on_side_stream():
+            self.graph.capture_begin()
+            try:
+                out = fn()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):  # the body's error is the one to raise
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def _signature(tree) -> tuple:
+    leaves, spec = tree_flatten(tree)
+    return spec, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
+
+
+class EpochGraph:
+    """One epoch of :func:`_epoch_scan` over static buffers: copies of the
+    state, the unit's operands (embs, labels, valid, bank, class_mask), the
+    threshold and the order.  :meth:`body` is the epoch on the buffers; on
+    the card :meth:`capture` records it as a graph (``graph`` a
+    :class:`CudaGraph`) and :meth:`replay` runs it again on new inputs."""
+
+    def __init__(self, core, cfg, state, embs, labels, valid, bank, class_mask, threshold, perm):
+        self._core, self._cfg = core, cfg
+        self.state, self.unit, self.threshold, self.perm = tree_map(
+            torch.clone, (state, (embs, labels, valid, bank, class_mask), threshold, perm))
+        self.n_steps = embs.shape[0] // cfg.batch_size
+        self.graph = None
+        self.outputs = None  # (state, stacked metrics): the body's outputs at the capture
+
+    def body(self):
+        embs, labels, valid, bank, class_mask = self.unit
+        return _epoch_scan(self._core, self._cfg, self.state, embs, labels, valid, bank,
+                           class_mask, self.threshold, self.perm, step_spans=False)
+
+    def capture(self, graph) -> None:
+        """A few eager steps on clones of the state (discarded), then the
+        body captured into ``graph``."""
+        embs, labels, valid, bank, class_mask = self.unit
+        b = self._cfg.batch_size
+
+        def warm():
+            state = tree_map(torch.clone, self.state)
+            for _ in range(WARMUP_STEPS):
+                state, _ = self._core(state, embs[:b], labels[:b], valid[:b], class_mask, bank,
+                                      self.threshold)
+
+        with annotate("train-graph-capture"):
+            graph.warm_up(warm)
+            self.outputs = graph.capture(self.body)
+            self.graph = graph
+        count("train_graph_captures")
+
+    def load(self, embs, labels, valid, bank, class_mask) -> None:
+        """A unit's operands into the buffers."""
+        for dst, src in zip(tree_leaves(self.unit),
+                            tree_leaves((embs, labels, valid, bank, class_mask))):
+            dst.copy_(src)
+
+    def replay(self, state, threshold, perm):
+        """One epoch from ``state``: (state, stacked metrics), clones of the
+        graph's outputs."""
+        with annotate("train-epoch-replay"):
+            for dst, src in zip(tree_leaves((self.state, self.threshold, self.perm)),
+                                tree_leaves((state, threshold, perm))):
+                dst.copy_(src)
+            self.graph.replay()
+            out = tree_map(torch.clone, self.outputs)
+        count("train_graph_replays")
+        count("train_steps", self.n_steps)
+        return out
+
+
+class _Epochs:
+    """The epochs of a fused callable: ``epochs.of(embs, labels, valid,
+    bank, class_mask)`` is one unit's ``epoch(state, threshold, perm) ->
+    (state, stacked metrics)``, the eager loop or the replay of a graph
+    from ``graphs``, the callable's cache keyed by the operands' signature."""
+
+    def __init__(self, core, cfg, mesh):
+        self._core, self._cfg, self._mesh = core, cfg, mesh
+        self.graphs: Dict[tuple, EpochGraph] = {}
+
+    def of(self, embs, labels, valid, bank, class_mask) -> Callable:
+        unit = (embs, labels, valid, bank, class_mask)
+        if not _graphs_epoch(self._mesh, embs):
+            return lambda state, threshold, perm: _epoch_scan(
+                self._core, self._cfg, state, *unit, threshold, perm)
+        graph = None
+
+        def epoch(state, threshold, perm):
+            nonlocal graph
+            if graph is None:  # the unit's first epoch
+                graph = self._graph(state, unit, threshold, perm)
+            return graph.replay(state, threshold, perm)
+
+        return epoch
+
+    def _graph(self, state, unit, threshold, perm) -> EpochGraph:
+        """The cached graph of this signature, the unit's operands loaded;
+        captured on its first use."""
+        key = _signature((state, unit, threshold, perm))
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = EpochGraph(self._core, self._cfg, state, *unit, threshold, perm)
+            graph.capture(CudaGraph(unit[0].device))
+            self.graphs[key] = graph
+        else:
+            graph.load(*unit)
+        return graph
 
 
 def build_fused_epoch(pair: AdapterPair, cfg: ExperimentConfig, mesh=None) -> Callable:
@@ -347,10 +540,10 @@ def build_fused_epoch(pair: AdapterPair, cfg: ExperimentConfig, mesh=None) -> Ca
     -> (state, stacked metrics)``, the data padded to whole batches and
     ``perm`` the epoch's (N_pad,) row order (ignored, and may be empty,
     with ``shuffle_train=False``)."""
-    core = _train_core(pair, cfg, mesh=mesh)
+    epochs = _Epochs(_train_core(pair, cfg, mesh=mesh), cfg, mesh)
 
     def epoch(state, embs, labels, valid, bank, class_mask, threshold, perm):
-        return _epoch_scan(core, cfg, state, embs, labels, valid, bank, class_mask, threshold, perm)
+        return epochs.of(embs, labels, valid, bank, class_mask)(state, threshold, perm)
 
     return epoch
 
@@ -384,7 +577,7 @@ def build_fused_unit(
     epoch (the joint driver), returning ``(state, stacked, evals,
     epoch_states)`` with (E, ...) eval outputs and the post-epoch states
     stacked the same way."""
-    core = _train_core(pair, cfg, mesh=mesh)
+    epochs = _Epochs(_train_core(pair, cfg, mesh=mesh), cfg, mesh)
     if eval_mode not in (None, "final", "per_epoch"):
         raise ValueError(f"unknown eval_mode {eval_mode!r}")
 
@@ -399,10 +592,10 @@ def build_fused_unit(
                 f"operands (val embs/labels/valid, test embs/labels/valid); got {len(eval_ops)}")
         val_ops, test_ops = (eval_ops[:3], eval_ops[3:]) if eval_mode else (None, None)
         per_epoch, evals, states = [], [], []
+        epoch = epochs.of(embs, labels, valid, bank, class_mask)
         for e in range(thresholds.shape[0]):
             snapshot = state.params
-            state, stacked = _epoch_scan(core, cfg, state, embs, labels, valid, bank,
-                                         class_mask, thresholds[e], perms[e])
+            state, stacked = epoch(state, thresholds[e], perms[e])
             if use_prof:
                 state, stacked = _prof_reset(cfg, state, snapshot, thresholds[e], stacked)
             per_epoch.append(stacked)
@@ -431,17 +624,17 @@ def build_fused_run(pair: AdapterPair, cfg: ExperimentConfig, use_prof: bool = F
     (U, ...) tensors.  Units of uneven length are padded to the largest
     with fully masked batches, which the step guard makes exact no-ops; a
     unit whose resets are off rides in with zero thresholds."""
-    core = _train_core(pair, cfg, guard_empty=True, mesh=mesh)
+    epochs = _Epochs(_train_core(pair, cfg, guard_empty=True, mesh=mesh), cfg, mesh)
 
     def run(state, embs, labels, valid, bank, class_masks, thresholds, perms,
             val_embs, val_labels, val_valid, test_embs, test_labels, test_valid):
         unit_stacked, unit_evals, unit_states = [], [], []
         for u in range(embs.shape[0]):
             per_epoch = []
+            epoch = epochs.of(embs[u], labels[u], valid[u], bank, class_masks[u])
             for e in range(thresholds.shape[1]):
                 snapshot = state.params
-                state, stacked = _epoch_scan(core, cfg, state, embs[u], labels[u], valid[u],
-                                             bank, class_masks[u], thresholds[u, e], perms[u, e])
+                state, stacked = epoch(state, thresholds[u, e], perms[u, e])
                 if use_prof:
                     state, stacked = _prof_reset(cfg, state, snapshot, thresholds[u, e], stacked)
                 per_epoch.append(stacked)
