@@ -38,7 +38,12 @@ and without the final result line:
    whose segment no key shares (different q and kv ids), in fp32 (TF32
    off) and bf16; in both types the kernel with key-tile skipping equals
    itself without (kv ids cloned) bit for bit, and the key tiles it
-   computed, counted on the card, are the ones its predicate keeps;
+   computed, counted on the card, are the ones its predicate keeps; then
+   K3 at the DINOv2 tower's shape (512, 24, 1374, 64) bf16, one segment,
+   q, k and v split views of one qkv product as the tower makes them, the
+   whole batch in one launch: four batch rows (the first three and the
+   last) against the plain version, its launches in one tower forward at
+   the published widths, and times in turns with SDPA;
 9. the CXR-BERT text tower at full width (BERT-base, seeded random
    weights) and report length (batch 32, seq 512, ragged masks):
    ``get_projected_text_embeddings(use_flash_attention=True)`` against the
@@ -210,6 +215,11 @@ COSINE_ATOL = 1e-5
 FLASH_F32_ATOL = 1e-5  # fp32 online softmax vs one-pass softmax, TF32 off
 FLASH_BF16_ATOL = 2e-2  # bf16 kernel vs the plain version in fp32 from the same bf16 inputs
 FLASH_BF16_COS = 0.9999
+# K3 at the DINOv2 tower's shape, relative L2 over the compared rows: the bf16
+# output's own rounding reads ~2e-3; a kernel that lost the last, column-masked
+# key tile (30 of 1,374 keys) would read ~0.15
+VIT_FLASH_REL = 1e-2
+VIT_FLASH = (512, 24, 1374, 64)  # DINOv2 ViT-g/14-reg at 518^2, batch 512: (B, nh, S, hd)
 TEXT_BF16_COS = 0.999  # flash vs dense encode, per batch row (valid positions) and projection
 TEXT_F32_ATOL = 1e-4  # flash vs dense projected embeddings, fp32
 BANK_ATOL = 3e-5  # the BERT parity tolerance: the card's bank vs the CPU build
@@ -1012,6 +1022,80 @@ def flash_checks(results):
                 f"skipping == without: {same}")
             check(same, f"flash {key}: skipping changed the result")
     results["flash_skip_check"] = skips
+
+
+def vit_flash_phase(results):
+    """K3 where the DINOv2 tower runs it (``models/dinov2.py::_attention``):
+    (512, 24, 1374, 64) bf16, S not a multiple of 64 (the last key tile is
+    masked by column), one segment, q, k and v strided views of one (B, S,
+    3 x 1536) product.  The whole batch in one launch; four of its rows
+    (the first three and the last) against the plain fp32 version (the
+    whole batch's fp32 logits would be 92 GB); K3's launches in one forward
+    of the tower at its published widths (one a block); CUDA events in turns
+    with SDPA on contiguous copies, the profiler's device time, and the
+    bound (operations at the bf16 peak here)."""
+    import torch
+    import torch.nn.functional as F
+
+    from incremental_multimodal_medical_learning_ii_torch.models import dinov2 as vit
+    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
+        flash_attention,
+        mha_reference,
+    )
+
+    b, nh, s, hd = VIT_FLASH
+    g = torch.Generator(device="cuda").manual_seed(91)
+    qkv = torch.randn(b, s, 3 * nh * hd, device="cuda", generator=g).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, nh, hd).transpose(1, 2) for t in qkv.split(nh * hd, dim=-1))
+    check(not q.is_contiguous(), "the tower's q is a strided view")
+    ids = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    scale = hd ** -0.5
+    with torch.no_grad():
+        got = flash_attention(q, k, v, ids, ids, scale)
+        rows = torch.tensor([0, 1, 2, b - 1], device="cuda")
+        ref = mha_reference(q[rows].float(), k[rows].float(), v[rows].float(), ids[rows], ids[rows], scale)
+        out = got[rows].float()
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        rel = float(torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref))
+        cos = float((out * ref).sum() / (out.norm() * ref.norm()))
+        log(f"  K3 at the tower's shape {VIT_FLASH} bf16, rows 0-2 and {b - 1}: max|kernel - plain| = "
+            f"{err:.3e} (bar {FLASH_BF16_ATOL:g}), relative L2 {rel:.3e} (bar {VIT_FLASH_REL:g}), "
+            f"cos {cos:.8f} (bar {FLASH_BF16_COS})")
+        check(bool(torch.isfinite(got).all()), "K3 at the tower's shape: not finite")
+        check(err <= FLASH_BF16_ATOL and rel <= VIT_FLASH_REL and cos > FLASH_BF16_COS,
+              f"K3 at the tower's shape off: max {err}, relative L2 {rel}, cos {cos}")
+        del got, ref, out
+        # the launches on the main path: one tower forward at the published widths
+        with torch.device("cuda"):
+            tower = vit.Dinov2(vit.dinov2_vitg14_reg())
+        pixels = torch.rand(1, 518, 518, 3, device="cuda")
+        before = flash_attention.launches
+        vit.dinov2_forward(tower, pixels, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches - before
+        check(launches == tower.dims.depth, f"{launches} K3 launches in a tower forward, not {tower.dims.depth}")
+        del tower, pixels
+        bound, by, flops, _ = flash_bound_ms(q, ids)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))  # SDPA's own layout, made once
+        kernel = lambda: flash_attention(q, k, v, ids, ids, scale)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(qc, kc, vc, scale=scale)  # noqa: E731
+        lib_err = float((library()[rows].float() - mha_reference(
+            q[rows].float(), k[rows].float(), v[rows].float(), ids[rows], ids[rows], scale)).abs().max())
+        med = alternating_ms({"kernel": kernel, "library": library}, rounds=5, iters=10)
+        device_ms = profiled_device_ms(kernel, flash_attention, "flash_fwd_bf16_kernel", med["kernel"],
+                                       bound, iters=10)
+    res = dict(shape=list(VIT_FLASH), max_abs_err=err, rel_l2=rel, cos=cos, library_max_abs_err=lib_err,
+               launches_per_forward=launches, ms=med["kernel"], library_ms=med["library"],
+               kernel_device_ms=device_ms, plain_ms=None, bound_ms=bound, bound_by=by,
+               tflops=flops / med["kernel"] / 1e9, library_tflops=flops / med["library"] / 1e9)
+    log(f"  K3 {VIT_FLASH} bf16: {med['kernel']:.3f} ms ({res['tflops']:.1f} TFLOP/s), device "
+        f"{device_ms} ms; SDPA {med['library']:.3f} ms (max|SDPA - plain| {lib_err:.3e}); bound "
+        f"{bound:.3f} ms by {by}; {launches} launches a tower forward")
+    results["vit_flash"] = res
+    del qkv, q, k, v, qc, kc, vc
+    torch.cuda.empty_cache()
+    return res
 
 
 def report_batch(vocab_size: int, seed: int):
@@ -4760,8 +4844,9 @@ def main(argv=None) -> int:
     serving_times(clfs, plain, images, results)
     if args.profile:
         profile_window("one batch of 16", lambda: clfs["mean"].predict_arrays(images[:16]), results)
-    phase("[8] flash attention vs its plain version")
+    phase("[8] flash attention vs its plain version, then at the DINOv2 tower's shape")
     flash_checks(results)
+    vit_flash = vit_flash_phase(results)
     phase("[9] text tower at full width, report length")
     bert, ids, mask = text_tower(results)
     phase("[10] prompt bank from weights through the CLI")
@@ -4932,6 +5017,14 @@ def main(argv=None) -> int:
         max_abs_err=k3q["max_abs_err"], ms=k3q["ms"], plain_ms=k3q["plain_ms"],
         bound_ms=k3q["bound_ms"], bound_by=k3q["bound_by"], library_ms=k3q["library_ms"],
         kernel_device_ms=k3q["kernel_device_ms"]))
+    kernels.append(dict(  # K3 in the DINOv2 tower's extraction (phase 8), 40 launches a batch
+        name=f"flash_attention (DINOv2 {'x'.join(map(str, vit_flash['shape']))})", route="cuda",
+        source=f"{PACKAGE}/csrc/flash_attention.cu",
+        replaces="incremental_multimodal_medical_learning_ii_tpu/models/cxr_bert.py:197",
+        launches=vit_flash["launches_per_forward"], max_abs_err=vit_flash["max_abs_err"],
+        ms=vit_flash["ms"], plain_ms=vit_flash["plain_ms"], bound_ms=vit_flash["bound_ms"],
+        bound_by=vit_flash["bound_by"], library_ms=vit_flash["library_ms"],
+        kernel_device_ms=vit_flash["kernel_device_ms"], tflops=vit_flash["tflops"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

@@ -13,6 +13,12 @@ on CUDA unless ``--device cpu``.
     python -m incremental_multimodal_medical_learning_ii_torch.cli.extract_embeddings \\
         --synthetic 64 --out-dir /tmp/emb
 
+    # DINOv2 ViT-g/14 with registers (3,072-d embeddings, 518² by default)
+    # from the public checkpoint (dinov2_vitg14_reg4_pretrain.pth):
+    python -m incremental_multimodal_medical_learning_ii_torch.cli.extract_embeddings \\
+        --image-model dinov2-vitg14-reg --dinov2-checkpoint dinov2_vitg14_reg4_pretrain.pth \\
+        --csv labels.csv --img-dir /data/chexpert/ --out-dir embeddings/dinov2
+
 Shards are written at batch boundaries once ``--checkpoint-interval``
 images have gathered, so at the defaults (batch 128, interval 5000) a shard
 holds 40 batches, 5120 rows; a resumed run's batches are the clean run's.
@@ -29,6 +35,7 @@ from pathlib import Path
 import numpy as np
 
 SYNTHETIC_SHAPE = (390, 320)  # CheXpert-small's most common geometry
+IMAGE_MODELS = ("biovil", "dinov2-vitg14-reg")
 
 
 def synthetic_images(n: int, lo: int = 0, hi: int | None = None, skip: int = 0):
@@ -56,10 +63,17 @@ def main(argv=None) -> dict:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--csv", help="CheXpert labels CSV (path column first)")
     p.add_argument("--img-dir", default="", help="prefix joined to CSV paths")
+    p.add_argument("--image-model", choices=IMAGE_MODELS, default="biovil",
+                   help="the image tower: BioViL's ResNet-50 (128-d) or DINOv2 ViT-g/14 with "
+                   "registers (3,072-d)")
     p.add_argument("--biovil-checkpoint", help="biovil_image_resnet50_proj_size_128.pt")
+    p.add_argument("--dinov2-checkpoint",
+                   help="dinov2_vitg14_reg4_pretrain.pth (facebookresearch/dinov2's names)")
     p.add_argument("--out-dir", required=True)
     p.add_argument("--batch-size", type=int, default=128)
-    p.add_argument("--size", type=int, default=512)
+    p.add_argument("--size", type=int, default=None,
+                   help="shortest edge after the resize; default 512 (biovil) or the tower's "
+                   "518 (dinov2)")
     p.add_argument("--crop", type=int, default=None, help="default: same as --size")
     p.add_argument("--pad-to", type=int, default=1024)
     p.add_argument("--checkpoint-interval", type=int, default=5000,
@@ -72,7 +86,7 @@ def main(argv=None) -> dict:
     p.add_argument("--no-grayscale-conv1", action="store_true",
                    help="disable the folded-conv1 grayscale path (keeps 3-channel images on device)")
     p.add_argument("--int8", action="store_true",
-                   help="int8-quantize the frozen trunk (not for bit-parity runs)")
+                   help="int8-quantize the frozen trunk (biovil only; not for bit-parity runs)")
     p.add_argument("--synthetic", type=int, default=0, help="N synthetic images (smoke run)")
     p.add_argument("--resume", action="store_true",
                    help="skip images already covered by shards in --out-dir")
@@ -99,30 +113,47 @@ def main(argv=None) -> dict:
     if not (0 <= args.host_index < args.num_hosts):
         raise SystemExit(f"--host-index {args.host_index} not in [0, {args.num_hosts})")
     device = resolve_device(args.device)
+    dinov2 = args.image_model == "dinov2-vitg14-reg"
+    if dinov2:
+        from incremental_multimodal_medical_learning_ii_torch.models import dinov2 as vit
+
+        dims = vit.dinov2_vitg14_reg()
+        size = args.size or dims.image_size
+    else:
+        size = args.size or 512
+    checkpoint = args.dinov2_checkpoint if dinov2 else args.biovil_checkpoint
 
     if args.synthetic:
-        from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
-            init_biovil_image_model,
-        )
+        if dinov2:
+            model = vit.init_dinov2(dims, torch.Generator().manual_seed(0))
+        else:
+            from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+                init_biovil_image_model,
+            )
 
-        model = init_biovil_image_model(torch.Generator().manual_seed(0))
+            model = init_biovil_image_model(torch.Generator().manual_seed(0))
         lo, hi = host_bounds(args.synthetic, args.num_hosts, args.host_index)
 
         def iterator(skip=0):
             return synthetic_images(args.synthetic, lo, hi, skip)
     else:
-        if not (args.csv and args.biovil_checkpoint):
-            raise SystemExit("--csv and --biovil-checkpoint required (or --synthetic N)")
+        flag = "--dinov2-checkpoint" if dinov2 else "--biovil-checkpoint"
+        if not (args.csv and checkpoint):
+            raise SystemExit(f"--csv and {flag} required (or --synthetic N)")
         import itertools
 
         from incremental_multimodal_medical_learning_ii_torch.data.manifest import (
             ChexpertManifest,
         )
-        from incremental_multimodal_medical_learning_ii_torch.models.convert import (
-            load_biovil_image_checkpoint,
-        )
 
-        model = load_biovil_image_checkpoint(args.biovil_checkpoint)
+        if dinov2:
+            model = vit.load_dinov2_checkpoint(checkpoint, dims)
+        else:
+            from incremental_multimodal_medical_learning_ii_torch.models.convert import (
+                load_biovil_image_checkpoint,
+            )
+
+            model = load_biovil_image_checkpoint(checkpoint)
         manifest = ChexpertManifest.from_csv(args.csv, img_dir=args.img_dir)
         lo, hi = host_bounds(len(manifest), args.num_hosts, args.host_index)
         print(f"{len(manifest)} images" + (
@@ -146,7 +177,7 @@ def main(argv=None) -> dict:
         model,
         store=store,
         batch_size=args.batch_size,
-        size=args.size,
+        size=size,
         crop=args.crop,
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         checkpoint_interval=args.checkpoint_interval,

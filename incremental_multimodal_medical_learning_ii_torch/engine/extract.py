@@ -5,12 +5,15 @@ Reference: ``chexpert-get-embedding.py:34-113``, a batch-size-1 Python
 loop over 191k JPEGs through frozen BioViL ResNet-50 with CPU PIL
 preprocessing, checkpointing a torch shard every 5000 images.
 
-The port:
+The port runs an image tower (:class:`ImageTower`, chosen by the model's
+type in :func:`image_tower`): BioViL's ResNet-50 + projector (128-d), or
+DINOv2 ViT-g/14 with registers (``models/dinov2.py``, 3,072-d).  The
+loop below is the same for both:
 
 * static-size batches through one forward that runs the preprocessing on
   the device (PIL-parity matmul resize + crop + /255, ``ops/preprocess.py``)
-  and then ResNet-50 + projector;
-* bf16 conv compute by default (fp32 statistics and accumulations), or the
+  and then the tower;
+* bf16 compute by default (fp32 statistics and accumulations), or BioViL's
   int8 trunk (``ops/quant.py``);
 * a host prefetch thread decodes and plans batch N+1 while the device runs
   batch N, and holds each batch's pixels in pinned memory, so the upload is
@@ -48,11 +51,12 @@ re-running its collective alone would put the ranks out of step.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import queue
 import threading
 import time
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -66,6 +70,12 @@ from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import
     biovil_image_forward,
     fold_grayscale_conv1,
     quantize_biovil_int8,
+)
+from incremental_multimodal_medical_learning_ii_torch.models.dinov2 import (
+    Dinov2,
+    cast_dinov2_blocks,
+    dinov2_forward,
+    fold_grayscale_patch_embed,
 )
 from incremental_multimodal_medical_learning_ii_torch.ops.preprocess import (
     DevicePreprocessPlan,
@@ -81,6 +91,7 @@ from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import (
     replicate,
     shard_bounds,
 )
+from incremental_multimodal_medical_learning_ii_torch.utils.config import JOINT_FEATURE_SIZE
 from incremental_multimodal_medical_learning_ii_torch.utils.device import readback, resolve_device
 from incremental_multimodal_medical_learning_ii_torch.utils.profiling import (
     annotate,
@@ -90,20 +101,61 @@ from incremental_multimodal_medical_learning_ii_torch.utils.profiling import (
 from incremental_multimodal_medical_learning_ii_torch.utils.retry import retry_call
 
 ImageLabel = Tuple[np.ndarray, np.ndarray]  # (H, W) uint8, (5,) float32
+ImageModel = Union[BioViLImageModel, Dinov2]
+# (model, (B, S, S, C) float pixels, dtype, int8) -> (B, width) fp32 embeddings
+Forward = Callable[[ImageModel, torch.Tensor, torch.dtype, bool], torch.Tensor]
 
 
-def make_encode_preprocessed_fn(dtype=torch.bfloat16, int8: bool = False):
-    """(model, (B, S, S, 3) float images) -> (B, 128) embeddings."""
+@dataclasses.dataclass(frozen=True)
+class ImageTower:
+    """What the extraction loop needs of an image model: its name, the
+    width of its embedding, its grayscale fold (a model whose input is one
+    grey plane where the pipeline copies it to three channels), its int8
+    form (``None``: it has none), its forward, the crop it takes (``None``:
+    any), and its frozen weights cast once to the compute type (a model
+    that casts inside its forward is returned as it is)."""
+
+    name: str
+    width: int
+    fold_grayscale: Callable[[ImageModel], ImageModel]
+    quantize_int8: Optional[Callable[[ImageModel], ImageModel]]
+    forward: Forward
+    crop: Optional[int] = None
+    cast: Callable[[ImageModel, torch.dtype], ImageModel] = lambda model, dtype: model
+
+
+def biovil_embed(model: BioViLImageModel, images: torch.Tensor, dtype: torch.dtype,
+                 int8: bool) -> torch.Tensor:
+    """BioViL's global embedding (the projected patches' mean), (B, 128)."""
+    return biovil_image_forward(model, images, dtype=dtype, int8=int8).projected_global_embedding
+
+
+BIOVIL_TOWER = ImageTower("biovil", JOINT_FEATURE_SIZE, fold_grayscale_conv1, quantize_biovil_int8,
+                          biovil_embed)
+
+
+def image_tower(model: ImageModel) -> ImageTower:
+    """The tower ``model`` is: DINOv2 (``models/dinov2.py``) or BioViL."""
+    if isinstance(model, Dinov2):
+        return ImageTower("dinov2", model.dims.embed_dim, fold_grayscale_patch_embed, None,
+                          dinov2_forward, crop=model.dims.image_size, cast=cast_dinov2_blocks)
+    return BIOVIL_TOWER
+
+
+def make_encode_preprocessed_fn(dtype=torch.bfloat16, int8: bool = False,
+                                forward: Forward = biovil_embed):
+    """(model, (B, S, S, 3) float images) -> (B, width) embeddings."""
 
     @torch.no_grad()
     def fn(model, images):
-        return biovil_image_forward(model, images, dtype=dtype, int8=int8).projected_global_embedding
+        return forward(model, images, dtype, int8)
 
     return fn
 
 
-def make_encode_raw_indexed_fn(dtype=torch.bfloat16, channels: int = 3, int8: bool = False):
-    """(model, raw u8 (B,P,P), uniq_w_h (U,crop,P), uniq_w_w, idx) -> (B, 128)
+def make_encode_raw_indexed_fn(dtype=torch.bfloat16, channels: int = 3, int8: bool = False,
+                               forward: Forward = biovil_embed):
+    """(model, raw u8 (B,P,P), uniq_w_h (U,crop,P), uniq_w_w, idx) -> (B, width)
     for mixed-shape batches: the per-image resize matrices are gathered on
     the device from U unique pairs (``DevicePreprocessPlan.prepare_deduped``),
     so the host uploads U matrix pairs instead of B."""
@@ -111,35 +163,37 @@ def make_encode_raw_indexed_fn(dtype=torch.bfloat16, channels: int = 3, int8: bo
     @torch.no_grad()
     def fn(model, raw, uniq_w_h, uniq_w_w, idx):
         images = preprocess_device_indexed(raw, uniq_w_h, uniq_w_w, idx, channels=channels)
-        return biovil_image_forward(model, images, dtype=dtype, int8=int8).projected_global_embedding
+        return forward(model, images, dtype, int8)
 
     return fn
 
 
-def make_encode_raw_fn(dtype=torch.bfloat16, channels: int = 3, int8: bool = False):
-    """(model, raw u8 (B,P,P), w_h, w_w) -> (B, 128) with per-image matrices.
+def make_encode_raw_fn(dtype=torch.bfloat16, channels: int = 3, int8: bool = False,
+                       forward: Forward = biovil_embed):
+    """(model, raw u8 (B,P,P), w_h, w_w) -> (B, width) with per-image matrices.
 
-    ``channels=1`` expects conv1 folded for grayscale input
-    (:func:`fold_grayscale_conv1`): the image stays single-channel on the
-    device and conv1 does a third of the work, with the same math (the
-    reference's ``ExpandChannels`` copies one plane three times)."""
+    ``channels=1`` expects the tower folded for grayscale input
+    (:attr:`ImageTower.fold_grayscale`): the image stays single-channel on
+    the device and the first layer does a third of the work, with the same
+    math (the reference's ``ExpandChannels`` copies one plane three times)."""
 
     @torch.no_grad()
     def fn(model, raw, w_h, w_w):
         images = preprocess_device(raw, w_h, w_w, channels=channels)
-        return biovil_image_forward(model, images, dtype=dtype, int8=int8).projected_global_embedding
+        return forward(model, images, dtype, int8)
 
     return fn
 
 
-def make_encode_raw_shared_fn(dtype=torch.bfloat16, channels: int = 3, int8: bool = False):
-    """(model, raw u8 (B,H,W), shared w_h, w_w) -> (B, 128); the uniform-size
+def make_encode_raw_shared_fn(dtype=torch.bfloat16, channels: int = 3, int8: bool = False,
+                              forward: Forward = biovil_embed):
+    """(model, raw u8 (B,H,W), shared w_h, w_w) -> (B, width); the uniform-size
     path: only raw uint8 pixels cross to the device with each batch."""
 
     @torch.no_grad()
     def fn(model, raw, w_h, w_w):
         images = preprocess_device_shared(raw, w_h, w_w, channels=channels)
-        return biovil_image_forward(model, images, dtype=dtype, int8=int8).projected_global_embedding
+        return forward(model, images, dtype, int8)
 
     return fn
 
@@ -222,7 +276,7 @@ def rank_positions(mesh, batch_size: int) -> Callable[[int], bool]:
 
 def extract_embeddings(
     images: Iterable[ImageLabel] | Callable[[int], Iterable[ImageLabel]],
-    model: BioViLImageModel,
+    model: ImageModel,
     store: Optional[ShardedEmbeddingStore] = None,
     *,
     batch_size: int = 64,
@@ -244,9 +298,12 @@ def extract_embeddings(
     stats: Optional[dict] = None,
     device=None,
 ) -> EmbeddingDataset:
-    """Run the full extraction pass; returns the (N, 128) dataset and writes
-    shard checkpoints along the way when ``store`` is given.  ``device=None``
+    """Run the full extraction pass; returns the (N, width) dataset (128 for
+    BioViL, 3,072 for DINOv2 ViT-g/14: :func:`image_tower`) and writes shard
+    checkpoints along the way when ``store`` is given.  ``device=None``
     means CUDA (raises without it); ``device="cpu"`` runs the plain path.
+    ``size`` and ``crop`` are the resize's shortest edge and the centre
+    crop; DINOv2 takes the crop its position embedding was trained at (518).
 
     Fault tolerance (beyond the reference, whose extraction dies on any
     error and restarts from image 0):
@@ -294,18 +351,25 @@ def extract_embeddings(
     if stats is not None:
         stats.update(dispatch_s=0.0, readback_s=0.0, feed_wait_s=0.0, batches=0,
                      retried_batches=0)
+    tower = image_tower(model)
+    if int8 and tower.quantize_int8 is None:
+        raise ValueError(f"int8: the {tower.name} tower has no int8 path")
+    if tower.crop is not None and crop != tower.crop:
+        raise ValueError(f"the {tower.name} tower takes {tower.crop}x{tower.crop} crops (its "
+                         f"position embedding's grid), got crop={crop}")
     channels = 3
     if device_preprocess and grayscale_conv1:
         # the pipeline's 3 channels are identical (ExpandChannels,
-        # DataRetrieval.py:27-40): fold conv1 over its input channels and
-        # keep images single-channel, the same math at a third of the traffic
-        model = fold_grayscale_conv1(model)
+        # DataRetrieval.py:27-40): fold the first layer over its input
+        # channels and keep images single-channel, the same math at a third
+        # of the traffic
+        model = tower.fold_grayscale(model)
         channels = 1
     if int8:
         # post-training quantization of the frozen trunk; after the fold,
         # which works on the float conv1 kernel
-        model = quantize_biovil_int8(model)
-    model = model.to(device).eval()
+        model = tower.quantize_int8(model)
+    model = tower.cast(model, dtype).to(device).eval()
     cuda = device.type == "cuda"
 
     def host(array) -> torch.Tensor:
@@ -319,8 +383,10 @@ def extract_embeddings(
 
     if device_preprocess:
         plan = DevicePreprocessPlan(size=size, crop=crop, pad_to=pad_to)
-        encode_indexed = make_encode_raw_indexed_fn(dtype=dtype, channels=channels, int8=int8)
-        encode_shared = make_encode_raw_shared_fn(dtype=dtype, channels=channels, int8=int8)
+        encode_indexed = make_encode_raw_indexed_fn(dtype=dtype, channels=channels, int8=int8,
+                                                    forward=tower.forward)
+        encode_shared = make_encode_raw_shared_fn(dtype=dtype, channels=channels, int8=int8,
+                                                  forward=tower.forward)
         shared_plans: dict = {}  # (h, w) -> SharedSizePreprocessPlan
         shared_matrices: dict = {}  # (h, w) -> its (w_h, w_w) on the device
 
@@ -352,7 +418,7 @@ def extract_embeddings(
             return encode_indexed, (up(raw), up(uniq_w_h), up(uniq_w_w), up(idx))
 
     else:
-        encode_pre = make_encode_preprocessed_fn(dtype=dtype, int8=int8)
+        encode_pre = make_encode_preprocessed_fn(dtype=dtype, int8=int8, forward=tower.forward)
 
         def prepare(batch_imgs):
             return host(np.stack([preprocess_host(im, size=size, crop=crop)
@@ -497,7 +563,7 @@ def extract_embeddings(
     if mesh is not None:
         barrier(mesh)  # rank 0's shards are on disk before any rank returns
     if not all_embs:
-        return EmbeddingDataset(np.zeros((0, 128), np.float32), np.zeros((0, 5), np.float32))
+        return EmbeddingDataset(np.zeros((0, tower.width), np.float32), np.zeros((0, 5), np.float32))
     return EmbeddingDataset(np.concatenate(all_embs), np.concatenate(all_labels))
 
 

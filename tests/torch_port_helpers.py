@@ -460,6 +460,25 @@ def extract_on_rank(tree, imgs, kw, store_dir, cut):
     return out
 
 
+def dinov2_extract_on_rank(dims, imgs, kw, store_dir):
+    """``extract_embeddings(mesh=)`` of a seeded random DINOv2 tower on this
+    rank: the embeddings without a store, and rank 0's shards of a run with
+    one."""
+    torch.set_num_threads(1)
+    from incremental_multimodal_medical_learning_ii_torch.data.store import ShardedEmbeddingStore
+    from incremental_multimodal_medical_learning_ii_torch.engine.extract import extract_embeddings
+    from incremental_multimodal_medical_learning_ii_torch.models.dinov2 import init_dinov2
+    from incremental_multimodal_medical_learning_ii_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(2)
+    model = init_dinov2(dims, torch.Generator().manual_seed(3))
+    store = ShardedEmbeddingStore(store_dir)
+    out = {"plain": extract_embeddings(iter(imgs), model, mesh=mesh, **kw).embeddings}
+    extract_embeddings(iter(imgs), model, store=store, mesh=mesh, **kw)
+    out["rows"] = store.glue().embeddings
+    return out
+
+
 def ring_on_rank(cases):
     """``ops/ring_attention.py`` on this rank of a ``(1, n)`` seq mesh: for
     each ``cases`` entry, ``{name: (q, k, v, valid, w)}`` of whole (B, nh, S,
