@@ -183,7 +183,16 @@ and without the final result line:
    ``train-step`` span; device memory back to its level once a Trainer is
    gone (after the process's first capture), a joint run's peak below
    2 GiB; the joint run on one NCCL rank stays eager; ms an epoch of the
-   joint run both ways, in turns, and the first graphed call (capture).
+   joint run both ways, in turns, and the first graphed call (capture);
+22. the conv epilogue (``csrc/conv_epilogue.cu``): bit for bit its plain
+   version at every (C, H, W, residual, ReLU) a 512^2 BioViL forward gives
+   it, at batch 2 and 512; its refusals (fp32, NCHW, C not a multiple of 8,
+   a misaligned tensor, an operand that requires grad); a bf16 forward at
+   (4, 512, 512) with it against the chain of torch ops and both against
+   fp32; 50 launches a forward; the forward at batch 512 both ways in turns
+   and its memory peak (no higher fused); each case's ms at batch 512 in
+   turns with the chain it replaces, against its byte bound, and the
+   profiler's device time and the plain version's at the largest.
 
 It prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  A copy of the results goes to
@@ -663,12 +672,6 @@ def serving(model, bank, results):
 
     from incremental_multimodal_medical_learning_ii_torch.inference import ChexpertClassifier
     from incremental_multimodal_medical_learning_ii_torch.objectives.scorer import score_embeddings
-    from incremental_multimodal_medical_learning_ii_torch.ops.fused_bottleneck import (
-        fused_bottleneck_layer,
-    )
-    from incremental_multimodal_medical_learning_ii_torch.ops.fused_cosine import (
-        fused_pairwise_cosine,
-    )
     from incremental_multimodal_medical_learning_ii_torch.utils.config import ExperimentConfig
 
     images = synthetic_cxrs(48, seed=0)
@@ -685,16 +688,14 @@ def serving(model, bank, results):
     torch.cuda.synchronize()
 
     # the main path, with the kernels' launch counts around it
-    fused_pairwise_cosine.launches = 0
-    fused_bottleneck_layer.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     outs = {}
     t0 = time.perf_counter()
     for mode, clf in clfs.items():
         outs[mode] = (clf.predict_arrays(images), clf.predict_arrays(images[-1:]))
     wall = time.perf_counter() - t0
-    launches = {"fused_cosine": fused_pairwise_cosine.launches,
-                "fused_bottleneck": fused_bottleneck_layer.launches}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     # one image forward per batch of 16 (the lone image is a batch of its own)
     forwards = len(clfs) * (-(-len(images) // kw["batch_size"]) + 1)
@@ -703,6 +704,9 @@ def serving(model, bank, results):
     check(launches["fused_cosine"] > 0, "the serving path never launched the fused cosine kernel")
     check(launches["fused_bottleneck"] == 3 * forwards,
           f"K2 launched {launches['fused_bottleneck']} times, not 3 per forward ({forwards})")
+    check(launches["conv_epilogue"] == EPILOGUE_LAUNCHES_K2 * forwards,
+          f"the conv epilogue launched {launches['conv_epilogue']} times, not "
+          f"{EPILOGUE_LAUNCHES_K2} per forward ({forwards})")
     results["launches"] = launches
     results["peak_memory_gib"] = peak
 
@@ -1801,6 +1805,7 @@ SCORE_ATOL = 1e-4  # served scores, the card against the CPU, fp32
 
 
 def counters():
+    from incremental_multimodal_medical_learning_ii_torch.ops.conv_epilogue import conv_epilogue_
     from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_bwd,
@@ -1813,7 +1818,8 @@ def counters():
     )
 
     return {"fused_cosine": fused_pairwise_cosine, "fused_bottleneck": fused_bottleneck_layer,
-            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "conv_epilogue": conv_epilogue_}
 
 
 def zero_counts() -> None:
@@ -1887,7 +1893,11 @@ def extraction_cli(tmp: Path, results) -> dict:
           f"extraction output {ds.embeddings.shape}")
     check(clean["stats"]["batches"] == batches == calls.get("batches")
           and clean["stats"]["retried_batches"] == 0, f"extraction stats {clean['stats']} {calls}")
-    check(not any(launches.values()), f"extraction launched a kernel off its path: {launches}")
+    check(launches["conv_epilogue"] == EPILOGUE_LAUNCHES * batches,
+          f"the conv epilogue launched {launches['conv_epilogue']} times, not "
+          f"{EPILOGUE_LAUNCHES} a batch ({batches})")
+    check(not any(v for k, v in launches.items() if k != "conv_epilogue"),
+          f"extraction launched a kernel off its path: {launches}")
     cli.main(["--synthetic", str(EXTRACT_N // 2), "--out-dir", str(tmp / "cut"), *flags])
     resumed = cli.main(["--synthetic", str(EXTRACT_N), "--out-dir", str(tmp / "cut"), "--resume",
                         *flags])
@@ -1990,8 +2000,14 @@ def int8_trunk(model, results) -> None:
 
     items = list(synthetic_images(EXTRACT_BS))
     kw = dict(batch_size=EXTRACT_BS, size=EXTRACT_SIZE, device="cuda")
-    bf16 = extract_embeddings(items, model, **kw).embeddings
-    int8 = extract_embeddings(items, model, int8=True, **kw).embeddings
+    embs, launches = {}, {}
+    for name in ("bf16", "int8"):  # one batch each, the epilogue's launches around it
+        zero_counts()
+        embs[name] = extract_embeddings(items, model, int8=name == "int8", **kw).embeddings
+        launches[name] = read_counts()["conv_epilogue"]
+    bf16, int8 = embs["bf16"], embs["int8"]
+    check(launches == {"bf16": EPILOGUE_LAUNCHES, "int8": 0},
+          f"the conv epilogue's launches in one batch each way: {launches}")
     cos = float(row_cos(int8, bf16).min())
     many = list(synthetic_images(INT8_N))
     rates = {}
@@ -2000,7 +2016,8 @@ def int8_trunk(model, results) -> None:
         t0 = time.perf_counter()
         extract_embeddings(many, model, int8=flag, **kw)
         rates[name] = INT8_N / (time.perf_counter() - t0)
-    out = dict(sums=sums, int8_vs_bf16_min_cos=cos, images_per_s=rates)
+    out = dict(sums=sums, int8_vs_bf16_min_cos=cos, images_per_s=rates,
+               epilogue_launches=launches)
     log(f"  (d) int8 trunk: embedding vs bf16 min cos {cos:.6f}; images/s at batch "
         f"{EXTRACT_BS}, {INT8_N} images, extract_embeddings in turns: {json.dumps(rates)}")
     check(bool(np.isfinite(int8).all()) and cos > INT8_COS, f"int8 vs bf16 embedding cos {cos}")
@@ -2049,12 +2066,15 @@ def device_encode(model, results, profile: bool = False) -> dict:
     fused = encode(True)
     torch.cuda.synchronize()
     launches = read_counts()
-    check(launches["fused_bottleneck"] == 3, f"K2 launched {launches} in one encode, not 3")
+    check(launches["fused_bottleneck"] == 3 and launches["conv_epilogue"] == EPILOGUE_LAUNCHES_K2,
+          f"K2 and the conv epilogue launched {launches} in one encode, not 3 and "
+          f"{EPILOGUE_LAUNCHES_K2}")
     cos = float(row_cos(fused.float().cpu().numpy(), encode(False).float().cpu().numpy()).min())
     check(cos > EMB_COS, f"the K2 encode against the cuDNN encode: cos {cos}")
     med = alternating_ms({"fused_layer1_ms": lambda: encode(True),
                           "cudnn_ms": lambda: encode(False)}, iters=3)
     enc = dict(batch=EXTRACT_BS, size=EXTRACT_SIZE, **med, k2_launches=launches["fused_bottleneck"],
+               epilogue_launches=launches["conv_epilogue"],
                min_cos_vs_cudnn=cos,
                images_per_s={k[:-3]: EXTRACT_BS / (v / 1e3) for k, v in med.items()})
     log(f"  (e) device encode: {json.dumps(enc)}")
@@ -4753,6 +4773,243 @@ def train_graph_phase(results) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# the conv epilogue (phase 22)
+# ----------------------------------------------------------------------
+EPILOGUE_KERNEL = "conv_epilogue_kernel"
+EPILOGUE_BATCHES = (2, 512)  # the card test's batch and the extraction cell's
+EPILOGUE_LAUNCHES = 50  # a BioViL forward: 49 in the trunk, 1 in the projector
+EPILOGUE_LAUNCHES_K2 = EPILOGUE_LAUNCHES - 9  # K2's layer1 hook takes layer1's nine
+# two bf16 forwards rounding in different places, relative L2 of the global
+# embeddings; the fused one no further from fp32 than this share over the chain's
+EPILOGUE_FORWARD_REL = 2e-2
+EPILOGUE_NO_WORSE = 1.25
+
+
+def epilogue_cases(model, images) -> dict:
+    """Every (C, H, W, residual, relu) one fused forward gives the epilogue,
+    with how often, read by a spy on the wrapper (launch counts are read
+    from a forward without it: the wrapper counts on the name its module
+    holds, which is the spy's while it is in place)."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        biovil_image_forward,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops import conv_epilogue as ce
+
+    seen: dict = {}
+    wrapped = ce.conv_epilogue_
+
+    def spy(a, scale, shift, residual=None, residual_scale=None, relu=True):
+        kind = "none" if residual is None else ("identity" if residual_scale is None else "scaled")
+        key = (a.shape[1], a.shape[2], a.shape[3], kind, relu)
+        seen[key] = seen.get(key, 0) + 1
+        return wrapped(a, scale, shift, residual, residual_scale, relu)
+
+    spy.launches = 0  # counted here while the spy is in place, and dropped
+    ce.conv_epilogue_ = spy
+    try:
+        with torch.no_grad():
+            biovil_image_forward(model, images, dtype=torch.bfloat16)
+    finally:
+        ce.conv_epilogue_ = wrapped
+    return seen
+
+
+def epilogue_bound_ms(n: int, c: int, h: int, w: int, kind: str) -> float:
+    """Bytes at the HBM peak: a read and written, r read (2 bytes a value)."""
+    return n * c * h * w * 2 * (3 if kind != "none" else 2) / HBM_BYTES_PER_S * 1e3
+
+
+def conv_epilogue_phase(results) -> dict:
+    """Phase 22: the conv epilogue (``csrc/conv_epilogue.cu``) against its
+    plain version bit for bit at every case a 512^2 BioViL forward gives
+    it, at batch 2 and 512; its refusals; a whole bf16 forward with it
+    against the chain of torch ops (and both against fp32, TF32 off), its
+    launches, the forward's ms and memory peak both ways at batch 512;
+    each case's time at batch 512 (CUDA events, in turns with the chain of
+    torch ops it replaces) against its byte bound, with the profiler's
+    device time at the largest."""
+    import torch
+
+    from incremental_multimodal_medical_learning_ii_torch.models import resnet as tr
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        biovil_image_forward,
+        init_biovil_image_model,
+    )
+    from incremental_multimodal_medical_learning_ii_torch.ops import conv_epilogue as ce
+
+    out: dict = {}
+    g = torch.Generator().manual_seed(4)
+    model = init_biovil_image_model(torch.Generator().manual_seed(3))
+    with torch.no_grad():  # trained nets' batch-norm ranges
+        for m in model.modules():
+            if isinstance(m, tr.FrozenBatchNorm):
+                c = m.scale.shape[0]
+                m.scale.copy_(torch.rand(c, generator=g) * 0.5 + 0.5)
+                m.bias.copy_((torch.rand(c, generator=g) - 0.5) * 0.2)
+                m.mean.copy_((torch.rand(c, generator=g) - 0.5) * 0.2)
+                m.var.copy_(torch.rand(c, generator=g) + 0.5)
+    model = model.cuda()
+    gd = torch.Generator(device="cuda").manual_seed(5)
+    images = torch.rand(4, 512, 512, 3, device="cuda", generator=gd)
+
+    cases = epilogue_cases(model, images)
+    zero_counts()
+    with torch.no_grad():
+        biovil_image_forward(model, images, dtype=torch.bfloat16)
+    launches = read_counts()["conv_epilogue"]
+    out["cases"] = {f"{c}x{h}x{w} {kind}{' relu' if relu else ''}": n
+                    for (c, h, w, kind, relu), n in sorted(cases.items())}
+    out["launches_per_forward"] = launches
+    log(f"  cases of one 512^2 forward: {json.dumps(out['cases'])}")
+    check(launches == sum(cases.values()) == EPILOGUE_LAUNCHES,
+          f"{launches} launches a forward, want {EPILOGUE_LAUNCHES}")
+
+    def operands(n, c, h, w, kind, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        mk = lambda: (torch.randn(n, h, w, c, device="cuda", generator=gen) * 3  # noqa: E731
+                      ).to(torch.bfloat16).permute(0, 3, 1, 2)
+        a, r = mk(), (mk() if kind != "none" else None)
+        s = torch.rand(c, device="cuda", generator=gen) + 0.5
+        b = (torch.rand(c, device="cuda", generator=gen) - 0.5) * 0.2
+        sr = torch.rand(c, device="cuda", generator=gen) + 0.5 if kind == "scaled" else None
+        return a, r, s, b, sr
+
+    checked, max_abs_err = {}, 0.0
+    for n in EPILOGUE_BATCHES:
+        for i, (c, h, w, kind, relu) in enumerate(sorted(cases)):
+            a, r, s, b, sr = operands(n, c, h, w, kind, i)
+            want = ce.conv_epilogue_reference(a, s, b, r, sr, relu)
+            got = ce.conv_epilogue_(a, s, b, r, sr, relu)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(got, want))
+            max_abs_err = max(max_abs_err, float((got.float() - want.float()).abs().max()))
+            checked[f"{n}x{c}x{h}x{w} {kind}{' relu' if relu else ''}"] = equal
+            if not equal:
+                check(False, f"conv_epilogue at ({n}, {c}, {h}, {w}) {kind} relu={relu}: "
+                             f"{int(torch.count_nonzero(got != want))} values differ")
+            del a, r, want, got
+    out["bit_equal"] = checked
+    out["max_abs_err"] = max_abs_err
+    torch.cuda.empty_cache()
+
+    t = torch.zeros(1, 16, 3, 3, dtype=torch.bfloat16, device="cuda")
+    one, zero = torch.ones(16, device="cuda"), torch.zeros(16, device="cuda")
+    buf = torch.zeros(2 * 16 * 9 + 1, dtype=torch.bfloat16, device="cuda")
+    refused = {
+        "float32": t.float(), "nchw": t.contiguous(),
+        "channels 12": torch.zeros(1, 12, 3, 3, dtype=torch.bfloat16, device="cuda"),
+        "misaligned": buf[1:].view(2, 3, 3, 16).permute(0, 3, 1, 2),
+    }
+    for name, x in refused.items():
+        x = x.contiguous(memory_format=torch.channels_last) if name != "nchw" else x
+        check(not ce.applies(x) and raises(lambda: ce.conv_epilogue_(x, one[:x.shape[1]],
+                                                                   zero[:x.shape[1]]),
+                                           ValueError), f"conv_epilogue_ took {name}")
+    x = t.contiguous(memory_format=torch.channels_last).requires_grad_()
+    check(not ce.applies(x) and raises(lambda: ce.conv_epilogue_(x, one, zero)),
+          "conv_epilogue_ took an operand that requires grad under grad mode")
+    out["refused"] = sorted(refused) + ["requires grad"]
+
+    def embed(m, imgs, dtype):
+        with torch.no_grad():
+            return biovil_image_forward(m, imgs, dtype=dtype).projected_global_embedding.double()
+
+    def rel(x, y):
+        return float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+
+    applies = ce.applies
+    fused = embed(model, images, torch.bfloat16)
+    ce.applies = lambda a, residual=None: False
+    try:
+        chain = embed(model, images, torch.bfloat16)
+    finally:
+        ce.applies = applies
+    want32 = embed(model, images, torch.float32)
+    out["forward"] = dict(fused_vs_chain=rel(fused, chain), fused_vs_fp32=rel(fused, want32),
+                          chain_vs_fp32=rel(chain, want32))
+    log(f"  forward (4, 512, 512) bf16: {json.dumps(out['forward'])}")
+    check(0 < out["forward"]["fused_vs_chain"] < EPILOGUE_FORWARD_REL
+          and out["forward"]["fused_vs_fp32"] <= EPILOGUE_NO_WORSE * out["forward"]["chain_vs_fp32"],
+          f"the fused forward against the chain: {out['forward']}")
+
+    # the forward at the extraction cell's batch, both ways in turns, and its memory peak
+    big = torch.rand(512, 512, 512, 1, device="cuda", generator=gd)
+    from incremental_multimodal_medical_learning_ii_torch.models.biovil_image import (
+        fold_grayscale_conv1,
+    )
+
+    grey = fold_grayscale_conv1(model)
+
+    def forward():
+        with torch.no_grad():
+            biovil_image_forward(grey, big, dtype=torch.bfloat16)
+
+    def unfused():
+        ce.applies = lambda a, residual=None: False
+        try:
+            forward()
+        finally:
+            ce.applies = applies
+
+    peaks = {}
+    for name, fn in (("fused", forward), ("chain", unfused)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+    med = alternating_ms({"fused": forward, "chain": unfused}, rounds=3, iters=3)
+    out["forward_512"] = dict(ms=med, images_per_s={k: 512e3 / v for k, v in med.items()},
+                              peak_bytes=peaks)
+    log(f"  forward (512, 512, 512, 1) bf16: {json.dumps(out['forward_512'])}")
+    check(peaks["fused"] <= peaks["chain"], f"the fused forward's memory peak rose: {peaks}")
+    del big
+    torch.cuda.empty_cache()
+
+    times = {}
+    n = EPILOGUE_BATCHES[-1]
+    largest = max(cases, key=lambda k: epilogue_bound_ms(n, *k[:4]))
+    for i, key in enumerate(sorted(cases)):
+        c, h, w, kind, relu = key
+        a, r, s, b, sr = operands(n, c, h, w, kind, 1000 + i)
+        bn = tr.FrozenBatchNorm(c).cuda()
+        bn.scale.copy_(s)
+        bn.bias.copy_(b)
+        rbn = None
+        if kind == "scaled":
+            rbn = tr.FrozenBatchNorm(c).cuda()
+            rbn.scale.copy_(sr)
+        with torch.no_grad():
+            med = alternating_ms({"ms": lambda: ce.conv_epilogue_(a, s, b, r, sr, relu),
+                                  "library_ms": lambda: tr.bn_epilogue(a, bn, relu, r, rbn)},
+                                 rounds=3, iters=10)
+        bound = epilogue_bound_ms(n, c, h, w, kind)
+        row = dict(**med, bound_ms=bound, bound_by="bytes", bound_share=bound / med["ms"],
+                   per_forward=cases[key])
+        if key == largest:
+            row["plain_ms"] = cuda_time_ms(lambda: ce.conv_epilogue_reference(a, s, b, r, sr, relu),
+                                           3)
+            row["kernel_device_ms"] = profiled_device_ms(
+                lambda: ce.conv_epilogue_(a, s, b, r, sr, relu), ce.conv_epilogue_,
+                EPILOGUE_KERNEL, med["ms"], bound, iters=10)
+        times[f"{n}x{c}x{h}x{w} {kind}{' relu' if relu else ''}"] = row
+        log(f"  conv_epilogue {n}x{c}x{h}x{w} {kind} relu={relu}: {json.dumps(row)}")
+        del a, r
+        torch.cuda.empty_cache()
+    out["times"] = times
+    out["largest"] = "{}x{}x{}x{} {}{}".format(n, *largest[:4], " relu" if largest[4] else "")
+    per_forward = {k: sum(row[k] * row["per_forward"] for row in times.values())
+                   for k in ("ms", "library_ms", "bound_ms")}
+    out["per_forward_ms"] = per_forward
+    log(f"  a batch-512 forward's epilogues, ms: {json.dumps(per_forward)}")
+    results["conv_epilogue"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4811,7 +5068,7 @@ def main(argv=None) -> int:
         log(f"  {entry}: {rep}")
     for entry, rep in ptxas.items():
         if (any(n in entry for n in K3_KERNELS) or K2_KERNEL in entry
-                or any(n in entry for n in K3B_BF16_KERNELS)):
+                or any(n in entry for n in K3B_BF16_KERNELS) or EPILOGUE_KERNEL in entry):
             check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
                   f"{entry} spills: {rep}")
     for name in K3_KERNELS:
@@ -4820,6 +5077,8 @@ def main(argv=None) -> int:
     check(sum("flash_bwd_" in e for e in ptxas) == 10, "no ptxas report for K3b's ten kernels")
     check(sum(any(n in e for n in K3B_BF16_KERNELS) for e in ptxas) == 4,
           "no ptxas report for K3b's four bf16 kernels")
+    check(sum(EPILOGUE_KERNEL in e for e in ptxas) == 6,
+          "no ptxas report for the conv epilogue's six instantiations")
 
     if args.mesh_only:
         log("[15] the data-parallel mesh alone")
@@ -4898,6 +5157,9 @@ def main(argv=None) -> int:
           "loop on the same inputs (loops under sync debug mode), captures and replays, memory "
           "freed with the Trainer, one NCCL rank eager, ms an epoch both ways")
     train_graph_phase(results)
+    phase("[22] the conv epilogue: against its plain version at every case of a 512^2 forward, "
+          "its refusals, a whole bf16 forward against the chain of torch ops, times")
+    epi = conv_epilogue_phase(results)
 
     k1 = results["cosine_times"]["serve-mean (16x10)"]
     k2 = results["layer_times"]["(16, 128, 128, 64)"]
@@ -5025,6 +5287,16 @@ def main(argv=None) -> int:
         ms=vit_flash["ms"], plain_ms=vit_flash["plain_ms"], bound_ms=vit_flash["bound_ms"],
         bound_by=vit_flash["bound_by"], library_ms=vit_flash["library_ms"],
         kernel_device_ms=vit_flash["kernel_device_ms"], tflops=vit_flash["tflops"]))
+    big = epi["times"][epi["largest"]]
+    kernels.append(dict(  # each conv's BN, residual and ReLU: launches in 13a's run, the rest 22
+        name=f"conv_epilogue ({epi['largest']})", route="cuda",
+        source=f"{PACKAGE}/csrc/conv_epilogue.cu",
+        replaces="none: XLA fuses each conv's batch norm, residual add and ReLU on the TPU",
+        launches=results["extraction_cli"]["launches"]["conv_epilogue"],
+        launches_per_forward=epi["launches_per_forward"], max_abs_err=epi["max_abs_err"],
+        ms=big["ms"],
+        plain_ms=big["plain_ms"], bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+        library_ms=big["library_ms"], kernel_device_ms=big["kernel_device_ms"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

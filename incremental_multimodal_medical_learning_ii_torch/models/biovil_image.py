@@ -21,7 +21,9 @@ from incremental_multimodal_medical_learning_ii_torch.models.resnet import (
     Conv2d,
     FrozenBatchNorm,
     ResNet50,
+    bn_epilogue,
     conv_apply,
+    fuses_epilogue,
     init_conv_,
     init_resnet50,
     is_space_to_depth_stem,
@@ -128,8 +130,9 @@ def quantize_biovil_int8(model: BioViLImageModel) -> BioViLImageModel:
     return out.eval()
 
 
-def _projector_forward(proj: Projector, patches_nchw: torch.Tensor) -> torch.Tensor:
-    h = torch.relu(proj.bn(proj.conv1(patches_nchw)))
+def _projector_forward(proj: Projector, patches_nchw: torch.Tensor,
+                       fuse: bool = False) -> torch.Tensor:
+    h = bn_epilogue(proj.conv1(patches_nchw), proj.bn, fuse=fuse)
     return proj.conv2(h) + proj.conv2_bias.to(h.dtype).view(1, -1, 1, 1)
 
 
@@ -173,7 +176,8 @@ def biovil_image_forward(
         conv = conv_apply_int8
     patches = resnet50_forward(model.encoder, images_nhwc, dtype=dtype, conv=conv,
                                layer1_fn=layer1_fn)
-    projected = _projector_forward(model.projector, patches.permute(0, 3, 1, 2))
+    projected = _projector_forward(model.projector, patches.permute(0, 3, 1, 2),
+                                   fuse=fuses_epilogue(conv))
     projected32 = projected.to(torch.float32).permute(0, 2, 3, 1)
     global_emb = torch.mean(projected32, dim=(1, 2))
     pooled = torch.mean(patches.to(torch.float32), dim=(1, 2))

@@ -11,6 +11,14 @@ inference-only, evaluated as the JAX package does: scale and shift computed
 in fp32 from the stored statistics, cast to the compute dtype, then
 ``x * scale + shift``.
 
+Each conv's batch norm, residual add and ReLU go through one helper,
+:func:`bn_epilogue`.  With the default convs (:func:`fuses_epilogue`), a
+conv output the kernel takes (CUDA bf16 ``channels_last``) gets them in one
+pass of ``ops/conv_epilogue.py``'s kernel, in fp32 with one rounding to
+bf16; every other run (the CPU, fp32, the int8 convs) takes the chain of
+torch ops above.  A ``layer1_fn`` hook replaces layer1 and its epilogues
+alike; the stem and layers 2-4 around it fuse as they do without it.
+
 Layout: modules hold OIHW weights; activations run NCHW-indexed in
 ``channels_last`` memory, so the NHWC tensors at the public functions
 (:func:`resnet50_forward` takes and returns NHWC, as the JAX function
@@ -21,12 +29,15 @@ Pallas kernel on the JAX side).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from incremental_multimodal_medical_learning_ii_torch.ops import conv_epilogue
+from incremental_multimodal_medical_learning_ii_torch.utils.profiling import count
 
 BN_EPS = 1e-5  # torch BatchNorm2d default
 RESNET50_LAYERS = (3, 4, 6, 3)
@@ -65,11 +76,15 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fp32 (scale, shift) of ``x * scale + shift`` from the stored statistics."""
         root = torch.sqrt(self.var + BN_EPS)
-        scale = (self.scale / root).to(x.dtype)
-        shift = (self.bias - self.mean * self.scale / root).to(x.dtype)
-        return x * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+        return self.scale / root, self.bias - self.mean * self.scale / root
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        count("bn_passes")
+        scale, shift = self.affine()
+        return x * scale.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
 
 
 class Bottleneck(nn.Module):
@@ -170,36 +185,65 @@ def conv_apply(conv: nn.Module, x: torch.Tensor, stride: Optional[int] = None,
     return conv(x, stride=stride, padding=padding, dilation=dilation)
 
 
-def _basic_block_forward(block: BasicBlock, x: torch.Tensor, conv=conv_apply) -> torch.Tensor:
-    out = torch.relu(block.bn1(conv(block.conv1, x)))
-    out = block.bn2(conv(block.conv2, out))
-    if block.downsample_conv is not None:
-        identity = block.downsample_bn(conv(block.downsample_conv, x))
-    else:
-        identity = x
-    return torch.relu(out + identity)
+def fuses_epilogue(conv) -> bool:
+    """Whether a forward with this conv hook hands its conv outputs to the
+    kernel (:func:`bn_epilogue`'s ``fuse``): the default convs do; the int8
+    convs (``ops/quant.py::conv_apply_int8``) keep the chain."""
+    return conv is conv_apply
+
+
+def bn_epilogue(out: torch.Tensor, bn: FrozenBatchNorm, relu: bool = True,
+                residual: Optional[torch.Tensor] = None,
+                residual_bn: Optional[FrozenBatchNorm] = None, fuse: bool = False) -> torch.Tensor:
+    """A conv output's batch norm ``bn``, then an optional residual (a
+    block's input, or with ``residual_bn`` the downsample conv's raw output
+    and its batch norm), then an optional ReLU.
+
+    ``fuse`` (the forwards pass :func:`fuses_epilogue` of their conv hook)
+    lets a tensor the kernel takes (:func:`ops.conv_epilogue.applies`:
+    CUDA bf16 ``channels_last``) get all of it in one pass of the kernel,
+    in place over ``out``; anything else runs the chain of torch ops."""
+    if fuse and conv_epilogue.applies(out, residual):
+        scale, shift, residual_scale = conv_epilogue.bn_params(bn, residual_bn)
+        return conv_epilogue.conv_epilogue_(out, scale, shift, residual, residual_scale, relu)
+    y = bn(out)
+    if residual is not None:
+        y = y + (residual if residual_bn is None else residual_bn(residual))
+    return torch.relu(y) if relu else y
+
+
+def _basic_block_forward(block: BasicBlock, x: torch.Tensor, conv=conv_apply,
+                         fuse: bool = False) -> torch.Tensor:
+    out = bn_epilogue(conv(block.conv1, x), block.bn1, fuse=fuse)
+    out = conv(block.conv2, out)
+    if block.downsample_conv is None:
+        return bn_epilogue(out, block.bn2, residual=x, fuse=fuse)
+    return bn_epilogue(out, block.bn2, residual=conv(block.downsample_conv, x),
+                       residual_bn=block.downsample_bn, fuse=fuse)
 
 
 def _bottleneck_forward(block: Bottleneck, x: torch.Tensor, conv=conv_apply,
-                        stride: Optional[int] = None, dilation: int = 1) -> torch.Tensor:
+                        stride: Optional[int] = None, dilation: int = 1,
+                        fuse: bool = False) -> torch.Tensor:
     """One bottleneck block; ``stride`` overrides the block's own (a dilated
     layer's first block runs at stride 1), and the 3x3 conv runs at
     ``dilation`` with as much padding.  Undilated, each conv is
-    ``conv(module, x)``, so a hook that takes no overrides still serves."""
-    out = torch.relu(block.bn1(conv(block.conv1, x)))
+    ``conv(module, x)``, so a hook that takes no overrides still serves.
+    ``fuse``: see :func:`bn_epilogue`."""
+    out = bn_epilogue(conv(block.conv1, x), block.bn1, fuse=fuse)
     if stride is None and dilation == 1:
         out = conv(block.conv2, out)
     else:
         out = conv(block.conv2, out, stride=stride, padding=dilation, dilation=dilation)
-    out = torch.relu(block.bn2(out))
-    out = block.bn3(conv(block.conv3, out))
+    out = conv(block.conv3, bn_epilogue(out, block.bn2, fuse=fuse))
     if block.downsample_conv is None:
-        identity = x
-    elif stride is None:
-        identity = block.downsample_bn(conv(block.downsample_conv, x))
+        return bn_epilogue(out, block.bn3, residual=x, fuse=fuse)
+    if stride is None:
+        identity = conv(block.downsample_conv, x)
     else:
-        identity = block.downsample_bn(conv(block.downsample_conv, x, stride=stride))
-    return torch.relu(out + identity)
+        identity = conv(block.downsample_conv, x, stride=stride)
+    return bn_epilogue(out, block.bn3, residual=identity, residual_bn=block.downsample_bn,
+                       fuse=fuse)
 
 
 def space_to_depth_2x2(x_nhwc: torch.Tensor) -> torch.Tensor:
@@ -286,8 +330,9 @@ def resnet50_forward(
     False, True)): the layer's stride becomes 1, its first block convolves
     at the previous dilation and the later blocks at the doubled one.
     """
-    out = max_pool_3x3_s2(torch.relu(model.bn1(stem_conv_apply(model.conv1, _to_nchw(x_nhwc, dtype),
-                                                               conv))))
+    fuse = fuses_epilogue(conv)
+    stem = stem_conv_apply(model.conv1, _to_nchw(x_nhwc, dtype), conv)
+    out = max_pool_3x3_s2(bn_epilogue(stem, model.bn1, fuse=fuse))
     dilation = 1
     for li in range(4):
         if li == 0 and layer1_fn is not None:
@@ -299,19 +344,22 @@ def resnet50_forward(
             dilation, stride = dilation * 2, 1
         for bi, block in enumerate(getattr(model, f"layer{li + 1}")):
             if bi == 0:
-                out = _bottleneck_forward(block, out, conv, stride=stride, dilation=prev_dilation)
+                out = _bottleneck_forward(block, out, conv, stride=stride, dilation=prev_dilation,
+                                          fuse=fuse)
             else:
-                out = _bottleneck_forward(block, out, conv, dilation=dilation)
+                out = _bottleneck_forward(block, out, conv, dilation=dilation, fuse=fuse)
     return out.permute(0, 2, 3, 1)
 
 
 def resnet18_forward(model: ResNet18, x_nhwc: torch.Tensor, dtype: torch.dtype = torch.float32,
                      conv=conv_apply) -> torch.Tensor:
     """(B, H, W, C) -> x4 (B, H/32, W/32, 512), NHWC (BasicBlocks)."""
-    out = max_pool_3x3_s2(torch.relu(model.bn1(conv(model.conv1, _to_nchw(x_nhwc, dtype)))))
+    fuse = fuses_epilogue(conv)
+    out = max_pool_3x3_s2(bn_epilogue(conv(model.conv1, _to_nchw(x_nhwc, dtype)), model.bn1,
+                                      fuse=fuse))
     for li in range(4):
         for block in getattr(model, f"layer{li + 1}"):
-            out = _basic_block_forward(block, out, conv)
+            out = _basic_block_forward(block, out, conv, fuse=fuse)
     return out.permute(0, 2, 3, 1)
 
 

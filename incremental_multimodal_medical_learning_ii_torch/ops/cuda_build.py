@@ -37,6 +37,7 @@ SOURCES = {
     "fused_bottleneck": "fused_bottleneck.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "conv_epilogue": "conv_epilogue.cu",
 }
 
 NVCC_FLAGS = [

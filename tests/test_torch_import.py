@@ -316,7 +316,7 @@ def test_kernel_build_is_lazy_and_named_by_content():
     from incremental_multimodal_medical_learning_ii_torch.ops import cuda_build
 
     assert set(cuda_build.SOURCES) == {"fused_cosine", "fused_bottleneck", "flash_attention",
-                                       "flash_attention_bwd"}
+                                       "flash_attention_bwd", "conv_epilogue"}
     for name, src in cuda_build.SOURCES.items():
         assert (cuda_build.CSRC_DIR / src).exists()
         path = cuda_build.library_path(name)
@@ -346,6 +346,7 @@ def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
     ("fused_cosine", "fused_cosine_launch"),
     ("fused_bottleneck", "bottleneck_block_launch"),
     ("flash_attention", "flash_attention_launch"),
+    ("conv_epilogue", "conv_epilogue_launch"),
 ])
 def test_launcher_signatures_match_the_bound_argtypes(module, symbol):
     """A wrapper binds its launcher's ``argtypes`` once (ctypes checks
