@@ -8,13 +8,16 @@ pixel cells, each one grey level, within the image's own brightness and
 contrast) under 5 bits of noise.
 
 Images are drawn a block at a time so that image ``i`` can be drawn again on
-its own for the reference: block ``b`` holds images ``b * n .. (b + 1) * n -
-1`` and comes from one generator seeded by ``(seed, b)``.
+its own for the reference: block ``b`` comes from one generator seeded by
+``(seed, b)``.  An extraction cell draws a pool of ``P`` blocks of ``n`` in
+set-up and cycles it in its window, so the loop's prefetch thread does the
+program's work alone: image ``i`` of the window is row ``i % n`` of block
+``(i // n) % P``.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -37,12 +40,15 @@ def block(seed: int, b: int, n: int, hw: Tuple[int, int] = FRONTAL) -> np.ndarra
     return x if x.shape[1:] == (h, w) else np.ascontiguousarray(x[:, :h, :w])
 
 
-def images_at(seed: int, idx, n: int, hw: Tuple[int, int] = FRONTAL) -> List[np.ndarray]:
-    """Images ``idx`` (ascending) of the stream of blocks of ``n``, each block drawn once."""
-    out, cur, data = [], None, None
-    for i in idx:
-        if int(i) // n != cur:
-            cur = int(i) // n
-            data = block(seed, cur, n, hw)
-        out.append(data[int(i) % n])
+def images_at(seed: int, idx, n: int, hw: Tuple[int, int], blocks: int) -> List[np.ndarray]:
+    """Images ``idx`` of the stream that cycles blocks ``0 .. blocks - 1`` of
+    ``n``, drawn anew from the seed, each block once."""
+    idx = [int(i) for i in idx]
+    which = [(i // n) % blocks for i in idx]
+    out: List[Optional[np.ndarray]] = [None] * len(idx)
+    for b in sorted(set(which)):
+        data = block(seed, b, n, hw)
+        for k, (i, w) in enumerate(zip(idx, which)):
+            if w == b:
+                out[k] = data[i % n].copy()
     return out

@@ -1,21 +1,21 @@
-"""Extraction over an endless stream through a second image tower: DINOv2
-ViT-g/14 with registers building the embedding cache.
+"""Extraction through a second image tower: DINOv2 ViT-g/14 with registers
+building the embedding cache.
 
-The traffic and the loop are ``extract_stream.py``'s (fresh seeded
-CheXpert-small images drawn a block at a time in the loop's own prefetch
-thread, shard checkpoints under the run's temporary directory, the rate
+The traffic and the loop are ``extract_stream.py``'s (seeded CheXpert-small
+images, a pool of ``pool_blocks`` blocks of ``batch`` drawn in set-up and
+cycled, shard checkpoints under the run's temporary directory, the rate
 over every image read back from the window's start to the last readback);
 the tower is the port's ``models/dinov2.py`` at the configuration's widths,
 its weights drawn from the seed.  The window opens the program's recorder
 (``utils/profiling.py::recording``), so its counters (``vit_images``,
 ``vit_tokens``, ``vit_attention_launches``) and spans reach the run.
 
-Set-up draws the weights on the card, builds the tower on them (one fp32
-copy of the weights serves the program, which casts its blocks to bf16
-in each call of the loop, and the reference) and runs the loop over
-``warmup_batches`` batches.  ``correct``: a sample of the window's
-images, drawn from the seed, against the plain fp32 reference
-(``reference/dinov2.py``); and every image drawn came back.
+Set-up draws the pool, draws the weights on the card, builds the tower on
+them (one fp32 copy of the weights serves the program, which casts its
+blocks to bf16 in each call of the loop, and the reference) and runs the
+loop over ``warmup_batches`` batches of the pool.  ``correct``: a sample of
+the window's images, drawn anew from the seed, against the plain fp32
+reference (``reference/dinov2.py``); and every image sent came back.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import torch
 
 from h100_bench.common import images as img
 from h100_bench.common.dinov2_weights import dinov2_weights
-from h100_bench.drivers.extract_stream import _extract, _program, sample_indices, stream
+from h100_bench.drivers.extract_stream import _extract, _program, draw_pool, sample_indices, stream
+from h100_bench.drivers.extract_stream import release  # noqa: F401  (frees the model and the pool)
 from h100_bench.reference import dinov2 as ref
 
 
@@ -56,14 +57,13 @@ def build_model(weights, cfg: dict, device):
 
 
 def setup(run) -> None:
-    p = run.params
     _, _, store_cls = _program()
+    draw_pool(run)
     weights = dinov2_weights(run.seed, run.device, run.config)
     run.state["weights"] = weights
     run.state["model"] = build_model(weights, run.config, run.device)
     warm = store_cls(run.tmp / "warmup")
-    _extract(run, run.state["model"], stream(run.seed ^ 0x5EED, p["batch"], p["image_hw"],
-                                              limit=p["warmup_batches"]), warm, {})
+    _extract(run, run.state["model"], stream(run.state["pool"], limit=run.params["warmup_batches"]), warm, {})
     if run.device.type == "cuda":
         torch.cuda.synchronize()
 
@@ -83,8 +83,7 @@ def window(run) -> None:
             t0_ns = time.time_ns()
             end = t0 + run.seconds
             ds = _extract(run, run.state["model"],
-                          stream(run.seed, p["batch"], p["image_hw"], stop_at=lambda: time.perf_counter() >= end),
-                          store, stats)
+                          stream(run.state["pool"], stop_at=lambda: time.perf_counter() >= end), store, stats)
             t1 = time.perf_counter()
             run.spans.add("extract_embeddings", t0_ns, time.time_ns())
     for s in rec.spans:
@@ -107,10 +106,6 @@ def window(run) -> None:
           f"{rec.counters.get('vit_attention_launches')}", file=sys.stderr)
 
 
-def release(run) -> None:
-    run.state.pop("model", None)
-
-
 def check(run) -> None:
     p = run.params
     embs = run.state.pop("embeddings")
@@ -118,7 +113,7 @@ def check(run) -> None:
     if not len(idx):
         run.checks.append(("emb_rel_gap", float("inf"), p["limit_emb_rel_gap"]))
         return
-    pics = img.images_at(run.seed, idx, p["batch"], tuple(p["image_hw"]))
+    pics = img.images_at(run.seed, idx, p["batch"], tuple(p["image_hw"]), blocks=p["pool_blocks"])
     want = ref.embed_images(run.state["weights"], pics, run.config, p["size"], p["crop"], run.device)
     got = torch.as_tensor(embs[idx], device=run.device)
     gaps = ref.rel_gap(got, want)

@@ -10,7 +10,8 @@ import torch
 from h100_bench.common import spec
 from h100_bench.tools import calibrate
 
-SMALL_IMAGES = {"batch": 4, "image_hw": [390, 320], "size": 128, "crop": 128, "check_images": 8}
+SMALL_IMAGES = {"batch": 4, "image_hw": [390, 320], "size": 128, "crop": 128, "check_images": 8,
+                "pool_blocks": 8}
 
 
 def limits(cell):

@@ -11,7 +11,7 @@ from h100_bench.reference import joint
 
 def test_biovil_fp32_matches_fp64():
     w = biovil_weights(11, "cpu")
-    pics = img.images_at(11, [0, 3], 4, (78, 64))
+    pics = img.images_at(11, [0, 3], 4, (78, 64), 1)
     e32 = ref.embed_images(w, pics, 64, 64, "cpu")
     e64 = ref.embed_images({k: v.double() for k, v in w.items()}, pics, 64, 64, "cpu", dtype=torch.float64)
     assert float(ref.rel_gap(e32, e64).max()) < 1e-5
@@ -19,7 +19,7 @@ def test_biovil_fp32_matches_fp64():
 
 def test_biovil_fp8_control_is_coarser():
     w = biovil_weights(12, "cpu")
-    pics = img.images_at(12, [1, 2], 4, (78, 64))
+    pics = img.images_at(12, [1, 2], 4, (78, 64), 1)
     e32 = ref.embed_images(w, pics, 64, 64, "cpu")
     e8 = ref.embed_images(w, pics, 64, 64, "cpu", quant="fp8")
     assert float(ref.rel_gap(e8, e32).max()) > 1e-2

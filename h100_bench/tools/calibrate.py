@@ -49,7 +49,7 @@ def extract_readings(params: dict, seed: int, device) -> dict:
     from h100_bench.reference import biovil as ref
 
     idx = sample_indices(seed, 100 * params["batch"], params["check_images"])  # as a run of 100 batches
-    pics = img.images_at(seed, idx, params["batch"], tuple(params["image_hw"]))
+    pics = img.images_at(seed, idx, params["batch"], tuple(params["image_hw"]), blocks=params["pool_blocks"])
     weights = biovil_weights(seed, device)
     with torch.no_grad():
         want = ref.embed_images(weights, pics, params["size"], params["crop"], device)

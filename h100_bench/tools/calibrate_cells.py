@@ -31,7 +31,7 @@ def tower_control(params: dict, config: dict, seed: int, device) -> dict:
     from h100_bench.reference import dinov2 as ref
 
     idx = sample_indices(seed, 100 * params["batch"], params["check_images"])  # as a run of 100 batches
-    pics = img.images_at(seed, idx, params["batch"], tuple(params["image_hw"]))
+    pics = img.images_at(seed, idx, params["batch"], tuple(params["image_hw"]), blocks=params["pool_blocks"])
     weights = dinov2_weights(seed, device, config)
     want = ref.embed_images(weights, pics, config, params["size"], params["crop"], device)
     got = ref.embed_images(weights, pics, config, params["size"], params["crop"], device, quant="fp8")
