@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile  # also torch.profiler windows (phases 7, 11, 13, 14, 17)
     python3 chip_smoke.py --mesh-only  # phases 1, 2 and 15 alone; no result line
 
-Phases, in order; any failure ends the script with a non-zero exit code
+Phases, in order (their numbers stay fixed, as other documents cite them
+by number, so there is no 20); any failure ends the script with a non-zero exit code
 and without the final result line:
 
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
@@ -27,7 +28,8 @@ and without the final result line:
    in MEAN then MAX mode, with the kernels' launch counts read around it
    (K2: one launch per bottleneck block, 3 per forward); compared with the
    stock cuDNN forward and the plain scorer;
-6. HTTP: ``make_server`` with micro-batching, concurrent requests;
+6. HTTP: ``make_server`` with micro-batching, then with its default lock,
+   concurrent requests each way;
 7. times with CUDA events (kernels, plain versions, library calls; K1
    against ``torch.matmul`` and K2 against the cuDNN bf16 chain as medians
    of 5 rounds in turns) and host-clock serving latency;
@@ -137,7 +139,7 @@ and without the final result line:
    time, TFLOP/s, each K3b kernel's ``ptxas -v`` line; (d) the profiling tools:
    ``zero_joint_bounds --trace-dir`` (its spans and K1's kernel in the
    trace), ``extract_embeddings(trace_dir=)``, ``device_encode_rate`` at
-   bench.py's shape with and without K2;
+   the root bench.py's shape with and without K2;
 18. the figures: (a) ``zero_joint_bounds`` joint at phase 12's scale with
    ``--plot-figures reference --tsne-plots`` and with ``--plot-figures
    off``, in turns, the fused loops under sync debug mode, with the walls,
@@ -158,21 +160,6 @@ and without the final result line:
    leave no toolchain process running; ``quick_probe`` returns rtt and
    upload and prints nothing; the probe's median upload is within 3x of
    the same 8 MiB pageable copy timed here with CUDA events;
-20. the benchmark layer as a user runs it: (a) ``python -m ...bench`` at
-   its real settings (batch 512, rounds of 2,048 images): value > 0 and no
-   failure, at least 2 samples, vs_baseline = value / 1.509, the device
-   rates at 512 and 256, 0 < mfu_device <= 1, the link's rtt, the card's
-   name and power limit; (b) ``python -m ...bench_all --quick --text
-   --text-long --fused-layer1 --s2d-stem``, then ``--serve --quick``,
-   ``--stages --quick``, ``--roofline --quick`` and ``--parallel-model``:
-   every metric name the JAX suite's section prints (with the port's
-   renames), numbers only (a null run again once), K2 launched 3 times an
-   encode with ``--fused-layer1`` and never otherwise, K3 12 times a flash
-   encode, K1 in the eval pass and both serving runs and once an iteration
-   in the cosine section; the text, train-epoch and cosine chains replayed
-   as CUDA graphs, their launches counted at each replay; K1 at 6144x10
-   and K3 at the quick text shape against their plain versions, timed;
-   (c) each stage's ms against its roofline cap at the same batch;
 21. a training epoch as a CUDA graph (``engine/steps.py::EpochGraph``): the
    joint, data-incremental (20 parts, myCL, ``--fused-unit``) and
    class-incremental (MORE_LABELS MAX) drivers at phase 12's scale, their
@@ -748,53 +735,61 @@ def http_phase(clf, images):
         Image.fromarray(im, "L").save(buf, "PNG")
         return buf.getvalue()
 
-    srv = make_server(clf, "127.0.0.1", 0, microbatch_s=0.005)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    try:
-        port = srv.server_address[1]
+    bodies = [png(im) for im in images[:3]]
+    batch = json.dumps({"images_b64": [base64.b64encode(png(im)).decode() for im in images[3:5]]})
+    direct, _ = clf.predict_arrays(images[:5])
+    k1 = counters()["fused_cosine"]
+    # micro-batched, then the default lock (``cli/serve.py --microbatch-ms 0``)
+    for mode, window_s in (("micro-batched", 0.005), ("locked", 0.0)):
+        srv = make_server(clf, "127.0.0.1", 0, microbatch_s=window_s)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            port = srv.server_address[1]
 
-        def request(method, path, body=None, ctype=None):
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
-            conn.request(method, path, body=body, headers={"Content-Type": ctype} if ctype else {})
-            resp = conn.getresponse()
-            payload = json.loads(resp.read())
-            conn.close()
-            return resp.status, payload
+            def request(method, path, body=None, ctype=None):
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                conn.request(method, path, body=body, headers={"Content-Type": ctype} if ctype else {})
+                resp = conn.getresponse()
+                payload = json.loads(resp.read())
+                conn.close()
+                return resp.status, payload
 
-        status, health = request("GET", "/healthz")
-        check(status == 200 and health["platform"] == "cuda", f"healthz: {status} {health}")
-        bodies = [png(im) for im in images[:3]]
-        batch = json.dumps({"images_b64": [base64.b64encode(png(im)).decode() for im in images[3:5]]})
-        out = {}
+            status, health = request("GET", "/healthz")
+            check(status == 200 and health["platform"] == "cuda", f"{mode} healthz: {status} {health}")
+            out = {}
 
-        def worker(i):
-            if i < 3:
-                out[i] = request("POST", "/classify", bodies[i], "image/png")
-            else:
-                out[i] = request("POST", "/classify", batch, "application/json")
+            def worker(i):
+                if i < 3:
+                    out[i] = request("POST", "/classify", bodies[i], "image/png")
+                else:
+                    out[i] = request("POST", "/classify", batch, "application/json")
 
-        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-            check(not t.is_alive(), "an HTTP request hung")
-        direct, _ = clf.predict_arrays(images[:5])
-        for i in range(4):
-            status, payload = out[i]
-            n = 1 if i < 3 else 2
-            check(status == 200, f"request {i}: {status} {payload}")
-            got = np.asarray(payload["scores"], np.float32)
-            check(got.shape == (n, 5), f"request {i}: shape {got.shape}")
-            want = direct[i : i + 1] if i < 3 else direct[3:5]
-            check(float(np.abs(got - want).max()) < 1e-3, f"request {i}: scores differ")
-        log(f"  HTTP: healthz {health['device']}; 4 concurrent /classify requests answered "
-            f"in {srv.microbatcher.dispatches} device dispatches")
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=30)
+            k1.launches = 0
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                check(not t.is_alive(), f"a {mode} HTTP request hung")
+            launched = k1.launches
+            for i in range(4):
+                status, payload = out[i]
+                n = 1 if i < 3 else 2
+                check(status == 200, f"{mode} request {i}: {status} {payload}")
+                got = np.asarray(payload["scores"], np.float32)
+                check(got.shape == (n, 5), f"{mode} request {i}: shape {got.shape}")
+                want = direct[i : i + 1] if i < 3 else direct[3:5]
+                check(float(np.abs(got - want).max()) < 1e-3, f"{mode} request {i}: scores differ")
+            check(launched > 0, f"the {mode} server never launched K1")
+            dispatches = (f"{srv.microbatcher.dispatches} device dispatches"
+                          if srv.microbatcher is not None else "turns under the lock")
+            log(f"  HTTP {mode}: healthz {health['device']}; 4 concurrent /classify requests "
+                f"answered in {dispatches}, K1 launched {launched} times")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
 
 
 def serving_times(clfs, plain, images, results):
@@ -3347,7 +3342,7 @@ K3B_BF16_COS = 0.999  # per gradient tensor in bf16 (p and ds rounded to bf16 on
 LSE_REL = 1e-5  # the kernel's log-sum-exp vs the plain forward's, per row, of max(|lse|, 1)
 TEXT_GRAD_F32_ATOL = 5e-5  # of the largest gradient, flash vs dense (tests/test_sp.py:199)
 TEXT_GRAD_BF16_COS = 0.999  # per parameter, flash vs dense in bf16
-BENCH_SHAPE = dict(batch=256, img_h=390, img_w=320, size=512, crop=512, channels=1)  # bench.py's
+BENCH_SHAPE = dict(batch=256, img_h=390, img_w=320, size=512, crop=512, channels=1)  # root bench.py's
 
 
 def flash_bwd_bound_ms(q, seg):
@@ -3667,7 +3662,7 @@ def tools_phase(model, results) -> dict:
     --synthetic --epochs 2 --trace-dir`` (the spans and K1's kernel in the
     trace; the run's wall time beside the same run untraced),
     ``extract_embeddings(trace_dir=)`` (the extraction spans), and
-    ``device_encode_rate`` at bench.py's shape with and without K2, beside
+    ``device_encode_rate`` at the root bench.py's shape with and without K2, beside
     phase 13e's rate."""
     import contextlib
     import shutil
@@ -4307,190 +4302,6 @@ def linkhealth_phase(card: str, results) -> dict:
     check(1 / LH_UPLOAD_RATIO <= r["upload_ratio"] <= LH_UPLOAD_RATIO,
           f"probe upload {ok['upload_mb_per_s']} MiB/s against {in_process:.1f} in process")
     return r
-
-
-# ----------------------------------------------------------------------
-# the benchmark layer (phase 20)
-
-BENCH_METRIC = "chexpert_extraction_images_per_sec_per_chip"
-BENCH_BASELINE = 1.509  # bench.py's TORCH_CPU_BASELINE_IMGS_PER_SEC
-BENCH_TIMEOUT_S = 700.0  # the supervisor's own hard limit is 540 + 120 s
-
-
-def run_module(module: str, args, timeout_s: float):
-    """``python -m module args`` from the checkout's root, as a user runs
-    it; returns (its JSON lines with a "metric", its seconds)."""
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", f"{PACKAGE}.{module}", *args], cwd=REPO,
-                         capture_output=True, text=True, timeout=timeout_s)
-    seconds = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"{module} {' '.join(args)} exited {out.returncode}:\n"
-                             f"{out.stderr[-4000:]}")
-    lines = []
-    for text in out.stdout.splitlines():
-        try:
-            line = json.loads(text)
-        except ValueError:
-            continue
-        if isinstance(line, dict) and "metric" in line:
-            lines.append(line)
-    return lines, seconds
-
-
-def suite_run(name: str, kind: str) -> dict:
-    """One run of bench_all's ``SECTIONS``, run again once if a line is null
-    (an invalid chained sample); its names in order, every value a number,
-    every line on the card."""
-    from incremental_multimodal_medical_learning_ii_torch.bench_all import SECTIONS
-
-    flags, names = SECTIONS[name]
-    for attempt in range(2):
-        lines, seconds = run_module("bench_all", flags, 600)
-        check([ln["metric"] for ln in lines] == names,
-              f"bench_all {name}: {[ln['metric'] for ln in lines]}")
-        nulls = [ln["metric"] for ln in lines if not isinstance(ln["value"], (int, float))]
-        if not nulls:
-            break
-        log(f"  bench_all {name}: null {nulls} (attempt {attempt + 1})")
-    check(not nulls, f"bench_all {name}: null values twice: {nulls}")
-    check(all(ln["device"] == kind for ln in lines),
-          f"bench_all {name} ran on {[ln['device'] for ln in lines]}")
-    return dict(seconds=seconds, attempts=attempt + 1, lines=lines)
-
-
-def suite_kernel_times(quick_sizes) -> dict:
-    """K1 and K3 at the shapes the suite gives them: K1 at section 4's
-    (6144, 128) x (10, 128); K3 in bf16 at ``--text-long --quick``'s
-    (8, 12, 128, 64), every row full (the suite's masks are all ones)."""
-    import torch
-    import torch.nn.functional as F
-
-    from incremental_multimodal_medical_learning_ii_torch.ops.flash_attention import (
-        flash_attention,
-        mha_reference,
-    )
-
-    g = torch.Generator(device="cuda").manual_seed(20)
-    out = {"k1": k1_case(torch.randn(quick_sizes.cosine_rows, 128, device="cuda", generator=g),
-                         torch.randn(10, 128, device="cuda", generator=g), COSINE_ATOL)}
-    b, s = quick_sizes.text_long_shape
-    dims = quick_sizes.bert_dims
-    shape = (b, dims.num_heads, s, dims.head_dim)
-    q, k, v, seg, scale = flash_inputs(shape, [s] * b, torch.bfloat16, seed=20)
-    got = flash_attention(q, k, v, seg, seg, scale).float()
-    ref = mha_reference(q.float(), k.float(), v.float(), seg, seg, scale)
-    err = float((got - ref).abs().max())
-    check(err <= FLASH_BF16_ATOL, f"K3 at {shape}: off by {err}")
-    bound, by, _, _ = flash_bound_ms(q, seg)
-    med = alternating_ms({"ms": lambda: flash_attention(q, k, v, seg, seg, scale),
-                          "library_ms": lambda: F.scaled_dot_product_attention(
-                              q, k, v, scale=scale)}, iters=100)
-    out["k3"] = dict(
-        shape=list(shape), max_abs_err=err, **med, bound_ms=bound, bound_by=by,
-        plain_ms=cuda_time_ms(lambda: mha_reference(q, k, v, seg, seg, scale), 20),
-        kernel_device_ms=profiled_device_ms(lambda: flash_attention(q, k, v, seg, seg, scale),
-                                            flash_attention, "flash_fwd_bf16_kernel", med["ms"],
-                                            bound))
-    log(f"  K1 and K3 at the suite's shapes: {json.dumps(out)}")
-    return out
-
-
-def bench_phase(card: str, kind: str, results) -> dict:
-    """(20) The benchmark layer as a user runs it: (a) the headline,
-    ``python -m ...bench`` at its real settings (batch 512, rounds of 2,048
-    images, the device-side rates at 512 and 256, MFU, the link probe);
-    (b) ``bench_all`` at --quick with every section flag, then --serve,
-    --stages, --roofline and --parallel-model, each line's launches read
-    against what the section ran; (c) the stages' ms against the roofline's
-    caps at the same batch."""
-    from incremental_multimodal_medical_learning_ii_torch import bench_all
-    from incremental_multimodal_medical_learning_ii_torch.utils.chained_timing import (
-        time_chained,
-    )
-
-    out = {}
-    # (a) the headline
-    lines, seconds = run_module("bench", [], BENCH_TIMEOUT_S)
-    check(len(lines) == 1, f"bench printed {len(lines)} metric lines")
-    head = lines[0]
-    log(f"  (a) bench in {seconds:.1f} s: {json.dumps(head)}")
-    log(f"      a batch of {head['batch']}: dispatch {head['dispatch_ms_per_batch']} ms, readback "
-        f"{head['readback_ms_per_batch']} ms, feed wait {head['feed_wait_ms_per_batch']} ms")
-    check(head["metric"] == BENCH_METRIC and head["value"] > 0 and "failure" not in head,
-          f"bench: {head}")
-    check(len(head["samples"]) >= 2, f"bench samples {head['samples']}")
-    check(head["vs_baseline"] == round(head["value"] / BENCH_BASELINE, 2),
-          f"bench vs_baseline {head['vs_baseline']} for {head['value']}")
-    check(head["device_images_per_sec_per_chip"] is not None
-          and head["device_images_per_sec_per_chip_b256"] is not None, "bench device rates null")
-    check(head["mfu_device"] is not None and 0 < head["mfu_device"] <= 1,
-          f"bench mfu_device {head['mfu_device']}")
-    check(isinstance(head["link"], dict) and head["link"].get("rtt_ms", 0) > 0,
-          f"bench link {head['link']}")
-    limit = float(card.split(",")[-1].strip().split()[0])
-    check(head["device"] == kind and head["power_limit_w"] == limit,
-          f"bench device {head['device']}, {head['power_limit_w']} W, not {kind} at {limit} W")
-    out["headline"] = dict(line=head, seconds=seconds)
-
-    # (b) the suite
-    sz = bench_all.QUICK
-    chained = time_chained.__defaults__[0] + 1  # each chained loop runs once, then each repeat
-    runs = {name: suite_run(name, kind) for name in bench_all.SECTIONS}
-    by_metric = {name: {ln["metric"]: ln for ln in run["lines"]} for name, run in runs.items()}
-    main_lines = by_metric["main"]
-    # a graphed loop also runs once eagerly before its capture (bench_all._graphed)
-    graphed = chained + 1
-    encodes = sum(sz.encode_k) * chained
-    for metric, line in main_lines.items():
-        launches = line.get("launches")
-        if metric.startswith("extraction_device"):
-            want = 3 * encodes if "fused_layer1" in metric else 0
-            check(launches["fused_bottleneck"] == want,
-                  f"{metric}: K2 launched {launches['fused_bottleneck']}, not {want}")
-        if metric.startswith("text_long") or metric.startswith("text_device"):
-            flash = "flash" in metric
-            want = sz.bert_dims.num_layers * sum(sz.text_long_k) * graphed if flash else 0
-            check(launches["flash_attention"] == want,
-                  f"{metric}: K3 launched {launches['flash_attention']}, not {want}")
-        if (metric.startswith("text_") and "roofline" not in metric) \
-                or metric in ("fused_train_epoch_device_samples_per_sec", "cuda_cosine_6144x10_us",
-                              "torch_cosine_6144x10_us"):
-            check(line.get("cuda_graph") is True, f"{metric}: not a CUDA graph")
-    check(main_lines["eval_samples_per_sec"]["launches"]["fused_cosine"] > 0,
-          "eval_samples_per_sec: K1 never launched")
-    want = sum(sz.cosine_k) * graphed  # one K1 launch an iteration
-    check(main_lines["cuda_cosine_6144x10_us"]["launches"]["fused_cosine"] == want,
-          f"cuda_cosine_6144x10_us: K1 launched "
-          f"{main_lines['cuda_cosine_6144x10_us']['launches']['fused_cosine']}, not {want}")
-    check(main_lines["torch_cosine_6144x10_us"]["launches"]["fused_cosine"] == 0,
-          "the plain cosine launched K1")
-    for metric in ("serve_microbatch_requests_per_sec", "serve_locked_requests_per_sec"):
-        check(by_metric["serve"][metric]["launches"]["fused_cosine"] > 0,
-              f"{metric}: K1 never launched")
-    for line in runs["stages"]["lines"]:
-        check(set(line["launches"].values()) == {0}, f"{line['metric']} launched {line['launches']}")
-    for name, run in runs.items():
-        log(f"  (b) bench_all {name} in {run['seconds']:.1f} s ({run['attempts']} run(s)):")
-        for line in run["lines"]:
-            log(f"      {line['metric']}: {line['value']} {line['unit']}")
-    out["suite"] = runs
-
-    # (c) the stages against the roofline's caps, at the same batch
-    stages, caps = by_metric["stages"], by_metric["roofline"]
-    table = {}
-    for name in ("stem", "layer1", "layer2", "layer3", "layer4"):
-        ms = stages[f"stage_{name}_ms_per_batch"]["value"]
-        cap = caps[f"roofline_{name}_cap_ms"]["value"]
-        table[name] = dict(measured_ms=ms, cap_ms=cap, measured_over_cap=ms / cap)
-    log(f"  (c) stages at batch {sz.stage_batch} against the roofline's caps on {card}:")
-    for name, row in table.items():
-        log(f"      {name}: {row['measured_ms']:.3f} ms against a cap of {row['cap_ms']:.3f} ms "
-            f"({row['measured_over_cap']:.2f}x)")
-    out["stages_vs_caps"] = dict(batch=sz.stage_batch, stages=table)
-    out["kernel_times"] = suite_kernel_times(sz)
-    results["bench"] = out
-    return out
 
 
 # ----------------------------------------------------------------------
@@ -5149,10 +4960,6 @@ def main(argv=None) -> int:
     phase("[19] link health on the card: cli/linkhealth.py at its defaults, a second fresh build, "
           "deadlines, quick_probe, the upload against an in-process copy")
     linkhealth_phase(card, results)
-    phase("[20] the benchmark layer: the headline (python -m ...bench at batch 512), then "
-          "bench_all at --quick with every section, --serve, --stages, --roofline and "
-          "--parallel-model; the stages against the roofline's caps")
-    bench = bench_phase(card, kind, results)
     phase("[21] a training epoch as a CUDA graph: the three drivers graphed against the eager "
           "loop on the same inputs (loops under sync debug mode), captures and replays, memory "
           "freed with the Trainer, one NCCL rank eager, ms an epoch both ways")
@@ -5207,17 +5014,14 @@ def main(argv=None) -> int:
             launches=train["k1_launches"][name], max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"], kernel_device_ms=k["kernel_device_ms"]))
-    suite = {ln["metric"]: ln for ln in bench["suite"]["main"]["lines"]}
-    kernels.append(dict(  # K2 in the extraction encode (phase 13e) and the suite's --fused-layer1
+    kernels.append(dict(  # K2 in the extraction encode (phase 13e)
         name=f"fused_bottleneck (extraction {'x'.join(map(str, k2x['shape']))})", route="cuda",
         source=f"{PACKAGE}/csrc/fused_bottleneck.cu",
         replaces="incremental_multimodal_medical_learning_ii_tpu/ops/pallas_bottleneck.py:117",
         launches=results["device_encode"]["k2_launches"], max_abs_err=k2x["max_abs_err"],
         ms=k2x["ms"], plain_ms=k2x["plain_ms"], bound_ms=k2x["bound_ms"],
         bound_by=k2x["bound_by"], library_ms=k2x["library_ms"],
-        kernel_device_ms=k2x["kernel_device_ms"], tflops=k2x["tflops"],
-        suite_launches=suite["extraction_device_fused_layer1_images_per_sec_per_chip"][
-            "launches"]["fused_bottleneck"]))
+        kernel_device_ms=k2x["kernel_device_ms"], tflops=k2x["tflops"]))
     k1n = results["cosine_eval"][eval_names[0]]  # K1 at the eval shape of the store's run (14e)
     kernels.append(dict(
         name=f"fused_cosine (native store {eval_names[0]})", route="cuda",
@@ -5259,26 +5063,6 @@ def main(argv=None) -> int:
         tflops_computed=k3b["tflops_computed"], skipped_tile_share=k3b["skipped_tile_share"],
         ms_skipping_off=k3b["ms_skipping_off"],
         forward_lse_ms=k3b["forward_lse_ms"], forward_ms=k3b["forward_ms"]))
-    # the benchmark layer (20b): launches counted by the suite's own lines
-    k1b, k3q = bench["kernel_times"]["k1"], bench["kernel_times"]["k3"]
-    kernels.append(dict(
-        name="fused_cosine (bench_all 6144x10)", route="cuda",
-        source=f"{PACKAGE}/csrc/fused_cosine.cu",
-        replaces="incremental_multimodal_medical_learning_ii_tpu/ops/pallas_cosine.py:32",
-        launches=suite["cuda_cosine_6144x10_us"]["launches"]["fused_cosine"],
-        max_abs_err=k1b["max_abs_err"], ms=k1b["ms"], plain_ms=k1b["plain_ms"],
-        bound_ms=k1b["bound_ms"], bound_by=k1b["bound_by"], library_ms=k1b["library_ms"],
-        kernel_device_ms=k1b["kernel_device_ms"],
-        suite_us=suite["cuda_cosine_6144x10_us"]["value"]))
-    kernels.append(dict(
-        name=f"flash_attention (bench_all --text-long {'x'.join(map(str, k3q['shape']))})",
-        route="cuda", source=f"{PACKAGE}/csrc/flash_attention.cu",
-        replaces="incremental_multimodal_medical_learning_ii_tpu/models/cxr_bert.py:197",
-        launches=suite["text_long_device_bf16_flash_prompts_per_sec"]["launches"][
-            "flash_attention"],
-        max_abs_err=k3q["max_abs_err"], ms=k3q["ms"], plain_ms=k3q["plain_ms"],
-        bound_ms=k3q["bound_ms"], bound_by=k3q["bound_by"], library_ms=k3q["library_ms"],
-        kernel_device_ms=k3q["kernel_device_ms"]))
     kernels.append(dict(  # K3 in the DINOv2 tower's extraction (phase 8), 40 launches a batch
         name=f"flash_attention (DINOv2 {'x'.join(map(str, vit_flash['shape']))})", route="cuda",
         source=f"{PACKAGE}/csrc/flash_attention.cu",
